@@ -1,0 +1,66 @@
+"""Cnn14 (PANN) spectrogram backbone.
+
+Port of ``diffmst_tpu/models/cnn14.py``: six double-conv blocks (3x3 convs,
+BatchNorm, ReLU, average pooling on the schedule below), a mean over
+frequency, max + mean over time, and a linear head. Convolutions are NCHW
+(the Flax model is NHWC). BatchNorm always normalizes with its running
+statistics: the port serves, and training comes later.
+
+Parameter names follow the reference (``conv_block1.conv1.weight``,
+``conv_block1.bn1.running_mean``, ``fc.weight``, ...).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["ConvBlock", "Cnn14"]
+
+
+class ConvBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(out_channels, eps=1e-5)
+
+    @staticmethod
+    def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(
+            x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps
+        )
+
+    def forward(self, x: torch.Tensor, pool_size) -> torch.Tensor:
+        """x: (bs, C, H, W)."""
+        x = F.relu(self._bn(self.bn1, self.conv1(x)))
+        x = F.relu(self._bn(self.bn2, self.conv2(x)))
+        return F.avg_pool2d(x, pool_size)  # floors, as Flax VALID pooling does
+
+
+class Cnn14(nn.Module):
+    # pool schedule over (bins, frames), cnn14.py:98
+    POOLS = ((2, 2), (4, 4), (4, 2), (4, 2), (4, 2), (2, 2))
+
+    def __init__(self, num_classes: int, n_inputs: int = 1, base_width: int = 64):
+        super().__init__()
+        chans = [n_inputs] + [base_width << i for i in range(6)]
+        for i in range(6):
+            setattr(self, f"conv_block{i + 1}", ConvBlock(chans[i], chans[i + 1]))
+        self.fc = nn.Linear(chans[-1], num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (bs, chs, bins, frames) spectrogram -> (bs, num_classes)."""
+        if x.shape[2] < 1024 or x.shape[3] < 128:
+            raise ValueError(
+                f"Cnn14 needs a spectrogram of at least (1024 bins, 128 frames) "
+                f"for its pool schedule; got {tuple(x.shape[2:4])}. Use n_fft >= 2048 "
+                f"and seq_len >= 128 * hop_length."
+            )
+        for i, pool in enumerate(self.POOLS):
+            x = getattr(self, f"conv_block{i + 1}")(x, pool)
+        x = x.mean(dim=2)  # mean over frequency -> (bs, C, frames')
+        x = x.amax(dim=2) + x.mean(dim=2)  # max + mean over time
+        return self.fc(x)

@@ -1,0 +1,165 @@
+"""MixStyleTransferModel: the parameter-prediction network.
+
+Port of ``diffmst_tpu/models/mst_model.py``: each mono track and each
+reference-mix channel goes through its own spectrogram encoder, and the
+controller maps the embeddings to console parameters. Module names are the
+reference's, so its state-dict keys are ``track_encoder.model.conv_block1
+.conv1.weight``, ``controller.transformer_encoder.layers.0.self_attn
+.in_proj_weight``, ... (a reference checkpoint loads after stripping its
+``model.`` prefix).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from diffmst_torch.models.cnn14 import Cnn14
+from diffmst_torch.models.controller import TransformerController
+from diffmst_torch.models.encoders import SpectrogramEncoder
+from diffmst_torch.models.transformer import _SelfAttention
+from diffmst_torch.utils.device import DeviceLike, resolve_device
+
+__all__ = ["MixStyleTransferModel"]
+
+
+class MixStyleTransferModel(nn.Module):
+    def __init__(
+        self,
+        track_encoder: SpectrogramEncoder,
+        mix_encoder: SpectrogramEncoder,
+        controller: TransformerController,
+        sum_and_diff: bool = False,
+    ):
+        super().__init__()
+        self.track_encoder = track_encoder
+        self.mix_encoder = mix_encoder
+        self.controller = controller
+        self.sum_and_diff = sum_and_diff
+
+    def encode_tracks(self, tracks: torch.Tensor) -> torch.Tensor:
+        """(bs, num_tracks, seq_len) -> (bs, num_tracks, embed_dim)."""
+        bs, num_tracks, seq_len = tracks.shape
+        e = self.track_encoder(tracks.reshape(bs * num_tracks, 1, seq_len))
+        return e.reshape(bs, num_tracks, -1)
+
+    def encode_mix(self, ref_mix: torch.Tensor) -> torch.Tensor:
+        """(bs, 2, seq_len) -> (bs, 2, embed_dim); mid/side with sum_and_diff."""
+        if self.sum_and_diff:
+            mid = ref_mix[:, 0:1, :] + ref_mix[:, 1:2, :]
+            side = ref_mix[:, 0:1, :] - ref_mix[:, 1:2, :]
+            return torch.stack([self.mix_encoder(mid), self.mix_encoder(side)], dim=1)
+        bs = ref_mix.shape[0]
+        e = self.mix_encoder(ref_mix.reshape(bs * 2, 1, ref_mix.shape[-1]))
+        return e.reshape(bs, 2, -1)
+
+    def forward(
+        self,
+        tracks: torch.Tensor,
+        ref_mix: torch.Tensor,
+        track_padding_mask: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(bs, num_tracks, T) stems, (bs, 2, T) reference -> (track_params,
+        fx_bus_params, master_bus_params), all in (0, 1)."""
+        return self.controller(
+            self.encode_tracks(tracks), self.encode_mix(ref_mix), track_padding_mask
+        )
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "MixStyleTransferModel":
+        """(Re)initialize every parameter and buffer in place, drawing from a
+        CPU ``generator`` so the weights do not depend on the device.
+
+        The Flax model's initializers: Xavier-uniform convolutions and Cnn14
+        heads, LeCun-normal (truncated) transformer and head matrices, zero
+        biases, unit norms, N(0, 1) tokens, zero-mean unit-variance BatchNorm
+        statistics.
+        """
+
+        def fill(t: torch.Tensor, draw) -> None:
+            cpu = torch.empty(t.shape, dtype=t.dtype)
+            draw(cpu)
+            t.copy_(cpu)
+
+        def xavier(t):
+            fill(t, lambda c: nn.init.xavier_uniform_(c, generator=generator))
+
+        def lecun(t):
+            # Flax's lecun_normal: truncated at 2 std, std corrected for the cut
+            std = math.sqrt(1.0 / t.shape[1]) / 0.87962566103423978
+            fill(t, lambda c: nn.init.trunc_normal_(c, 0.0, std, -2 * std, 2 * std, generator=generator))
+
+        cnn_heads = {id(m.fc) for m in self.modules() if isinstance(m, Cnn14)}
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                xavier(m.weight)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                (xavier if id(m) in cnn_heads else lecun)(m.weight)
+                m.bias.zero_()
+            elif isinstance(m, _SelfAttention):
+                for i in range(3):  # q, k and v: each (d, d) with fan-in d
+                    d = m.in_proj_weight.shape[1]
+                    lecun(m.in_proj_weight[i * d : (i + 1) * d])
+                m.in_proj_bias.zero_()
+            elif isinstance(m, TransformerController):
+                for tok in (m.track_embedding, m.mix_embedding, m.fx_bus_embedding,
+                            m.master_bus_embedding):
+                    fill(tok, lambda c: c.normal_(generator=generator))
+        return self
+
+    @staticmethod
+    def build(
+        embed_dim: int = 512,
+        n_fft: int = 2048,
+        hop_length: int = 512,
+        num_layers: int = 12,
+        nhead: int = 8,
+        num_track_control_params: int = 27,
+        num_fx_bus_control_params: int = 25,
+        num_master_bus_control_params: int = 26,
+        sum_and_diff: bool = False,
+        cnn_base_width: int = 64,
+        device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> "MixStyleTransferModel":
+        """The shipped configuration (configs/models/naive.yaml), in eval
+        mode on ``device`` (None: the CUDA device), initialized from
+        ``generator`` (default: a CPU generator seeded 0)."""
+        dev = resolve_device(device)
+
+        def encoder():
+            return SpectrogramEncoder(
+                embed_dim=embed_dim, n_fft=n_fft, hop_length=hop_length,
+                cnn_base_width=cnn_base_width,
+            )
+
+        with torch.device("meta"):  # allocate once, on the target device
+            model = MixStyleTransferModel(
+                track_encoder=encoder(),
+                mix_encoder=encoder(),
+                controller=TransformerController(
+                    embed_dim=embed_dim,
+                    num_track_control_params=num_track_control_params,
+                    num_fx_bus_control_params=num_fx_bus_control_params,
+                    num_master_bus_control_params=num_master_bus_control_params,
+                    num_layers=num_layers,
+                    nhead=nhead,
+                ),
+                sum_and_diff=sum_and_diff,
+            )
+        model = model.to_empty(device=dev)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        return model.init(generator).eval()

@@ -1,0 +1,139 @@
+"""The PyTorch port's mix consoles against the JAX package's.
+
+The same normalized parameter vectors, made from a numpy seed, go through the
+JAX console and the port's console on the CPU (the compressor kernels' plain
+versions). Tolerance: max-abs <= 1e-4 on the stems and the mix (BASELINE.md,
+"Numerical parity").
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffmst_tpu.console import AdvancedMixConsole as JaxAdvanced
+from diffmst_tpu.console import BasicMixConsole as JaxBasic
+from diffmst_torch.console import AdvancedMixConsole, BasicMixConsole
+from diffmst_torch.kernels import comp_fused, scan1p
+
+torch.set_num_threads(1)
+
+ATOL = 1e-4
+SR = 44100.0
+
+
+def _close(port, ref, atol=ATOL):
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=0, atol=atol)
+
+
+def _inputs(seed, bs=2, n=3, t=16384):
+    rng = np.random.default_rng(seed)
+    env = np.abs(np.sin(np.linspace(0.0, 6.0 * np.pi, t)))[None, None, :]
+    tracks = (rng.normal(size=(bs, n, t)) * 0.2 * env).astype(np.float32)
+    tp = rng.uniform(0.05, 0.95, size=(bs, n, 27)).astype(np.float32)
+    fp = rng.uniform(0.05, 0.95, size=(bs, 25)).astype(np.float32)
+    mp = rng.uniform(0.05, 0.95, size=(bs, 26)).astype(np.float32)
+    # faders within +-9.6 dB, so that no stage drives the mix far past full
+    # scale, where float32 spacing alone exceeds the tolerance
+    tp[..., 0] = rng.uniform(0.4, 0.6, size=(bs, n))
+    mp[:, 24:] = rng.uniform(0.4, 0.6, size=(bs, 2))
+    return tracks, tp, fp, mp
+
+
+_JAX_MIX = {}
+
+
+def _jax_advanced(smoother):
+    """The JAX console's output, computed once per smoother for the module."""
+    if smoother not in _JAX_MIX:
+        tracks, tp, fp, mp = _inputs(0)
+        out = JaxAdvanced(SR, comp_smoother=smoother)(
+            jnp.asarray(tracks), jnp.asarray(tp), jnp.asarray(fp), jnp.asarray(mp),
+            use_fx_bus=False,
+        )
+        _JAX_MIX[smoother] = (np.asarray(out.mixed_tracks), np.asarray(out.mix), out)
+    return _JAX_MIX[smoother]
+
+
+@pytest.mark.parametrize(
+    "port_smoother,jax_smoother",
+    [("auto", "auto"), ("scan", "auto"), ("fused", "auto"), ("fsm", "fsm")],
+)
+def test_advanced_console_matches_jax(port_smoother, jax_smoother):
+    """(2, 3, 16384), fx bus off: the port's "auto" (K2), "scan" (K1) and
+    "fused" all equal the JAX "auto" (associative scan); "fsm" equals "fsm"."""
+    tracks, tp, fp, mp = _inputs(0)
+    stems_ref, mix_ref, jout = _jax_advanced(jax_smoother)
+    out = AdvancedMixConsole(SR, comp_smoother=port_smoother, device="cpu")(
+        tracks, tp, fp, mp, use_fx_bus=False
+    )
+    assert out.mix.shape == (2, 2, 16384) and out.mixed_tracks.shape == (2, 2, 3, 16384)
+    _close(out.mixed_tracks, stems_ref)
+    _close(out.mix, mix_ref)
+    for group, ref_group in zip(out[2:], jout[2:]):
+        for effect, params in group.items():
+            for name, v in params.items():
+                np.testing.assert_allclose(
+                    v.numpy(), np.asarray(ref_group[effect][name]), rtol=1e-6, atol=1e-5
+                )
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        dict(use_track_eq=False),
+        dict(use_track_compressor=False, use_track_panner=False),
+        dict(use_master_bus=False),
+        dict(use_master_bus=False, use_output_fader=False, use_track_input_fader=False),
+    ],
+    ids=["no_track_eq", "no_comp_no_pan", "no_master", "faders_off"],
+)
+def test_advanced_console_toggles_match_jax(flags):
+    tracks, tp, fp, mp = _inputs(1)
+    ref = JaxAdvanced(SR)(
+        jnp.asarray(tracks), jnp.asarray(tp), jnp.asarray(fp), jnp.asarray(mp),
+        use_fx_bus=False, **flags,
+    )
+    out = AdvancedMixConsole(SR, device="cpu")(tracks, tp, fp, mp, use_fx_bus=False, **flags)
+    _close(out.mix, ref.mix)
+
+
+def test_basic_console_matches_jax():
+    rng = np.random.default_rng(2)
+    tracks = (rng.normal(size=(2, 4, 1000)) * 0.2).astype(np.float32)
+    tp = rng.uniform(0.0, 1.0, size=(2, 4, 2)).astype(np.float32)
+    ref = JaxBasic(SR)(jnp.asarray(tracks), jnp.asarray(tp))
+    out = BasicMixConsole(SR, device="cpu")(tracks, tp)
+    _close(out.mixed_tracks, ref.mixed_tracks)
+    _close(out.mix, ref.mix)
+    ref = JaxBasic(SR)(jnp.asarray(tracks), jnp.asarray(tp), use_track_panner=False)
+    _close(BasicMixConsole(SR, device="cpu")(tracks, tp, use_track_panner=False).mix, ref.mix)
+
+
+def test_console_counts_no_launch_on_cpu():
+    scan1p.onepole_core.launches = 0
+    comp_fused.compressor_fused_gain.launches = 0
+    tracks, tp, fp, mp = _inputs(3, bs=1, n=2, t=4096)
+    for smoother in ("auto", "scan"):
+        out = AdvancedMixConsole(SR, comp_smoother=smoother, device="cpu")(tracks, tp, fp, mp)
+        assert torch.isfinite(out.mix).all()
+    assert scan1p.onepole_core.launches == 0
+    assert comp_fused.compressor_fused_gain.launches == 0
+
+
+def test_fx_bus_raises():
+    tracks, tp, fp, mp = _inputs(4, bs=1, n=2, t=1024)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        AdvancedMixConsole(SR, device="cpu")(tracks, tp, fp, mp, use_fx_bus=True)
+
+
+def test_console_default_device_is_cuda():
+    """With no card, a console built without device="cpu" raises instead of
+    running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    tracks, tp, fp, mp = _inputs(5, bs=1, n=2, t=1024)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdvancedMixConsole(SR)(tracks, tp, fp, mp)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BasicMixConsole(SR)(tracks, tp[..., :2])

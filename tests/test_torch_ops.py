@@ -1,0 +1,337 @@
+"""The PyTorch port's DSP ops and the K1/K2 plain versions against the JAX package.
+
+Every case feeds the same numpy inputs, made from a seed, to the JAX function
+and to its counterpart in ``diffmst_torch`` on the CPU (where each kernel
+wrapper runs its plain PyTorch version). The JAX Pallas kernels run in
+interpret mode, as the JAX package's own tests run them.
+
+Tolerance: max-abs <= 1e-4 on every output (BASELINE.md, "Numerical parity").
+"""
+
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffmst_tpu import ops as jops
+from diffmst_tpu.kernels.comp_fused import compressor_fused_gain as jax_fused_gain
+from diffmst_tpu.kernels.scan1p import onepole_core as jax_onepole_core
+from diffmst_torch import ops as tops
+from diffmst_torch.kernels import comp_fused, scan1p
+
+torch.set_num_threads(1)
+
+ATOL = 1e-4
+SR = 44100.0
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def _close(port, ref, atol=ATOL):
+    port = port.detach().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
+    np.testing.assert_allclose(port, np.asarray(ref), rtol=0, atol=atol)
+
+
+def _attack_alpha(rng, rows):
+    """One-pole coefficients of attack times from 1 to 250 ms at 44.1 kHz."""
+    ms = rng.uniform(1.0, 250.0, size=rows)
+    return np.exp(-np.log(9.0) / (SR * ms / 1e3)).astype(np.float32)
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def _onepole_f64(b, alpha):
+    """The recurrence run sample by sample in float64."""
+    a = np.broadcast_to(alpha.reshape(alpha.shape[0], -1), b.shape).astype(np.float64)
+    y = np.empty(b.shape, np.float64)
+    acc = np.zeros(b.shape[0])
+    for n in range(b.shape[1]):
+        acc = a[:, n] * acc + b[:, n]
+        y[:, n] = acc
+    return y
+
+
+@pytest.mark.parametrize("per_sample", [False, True], ids=["alpha_row", "alpha_sample"])
+def test_onepole_plain_matches_pallas(per_sample):
+    """K1's plain version == JAX onepole_core (interpret), T a multiple of no chunk.
+
+    On unit-scale signals the float32 Pallas scan is within 1e-4 of exact.
+    On gains of tens of dB with a pole at 0.9998 its own rounding reaches
+    3e-4 (tests/port_precision_probe.py), so there the plain version, which
+    composes in float64 as the kernel does, is held against a float64 run.
+    """
+    rng = np.random.default_rng(0)
+    rows, t = 5, 3001
+    if per_sample:
+        alpha = rng.uniform(0.9, 0.9999, size=(rows, t)).astype(np.float32)
+        one_minus = 1.0 - alpha
+    else:
+        alpha = _attack_alpha(rng, rows)
+        one_minus = (1.0 - alpha)[:, None]
+    g = rng.normal(size=(rows, t)).astype(np.float32)
+    b = (one_minus * g).astype(np.float32)
+    ref = jax_onepole_core(jnp.asarray(b), jnp.asarray(alpha), chunk=128, interpret=True)
+    _close(scan1p.onepole_core_plain(_t(b), _t(alpha)), ref)
+    _close(scan1p.onepole_core(_t(b), _t(alpha)), ref)
+
+    g_db = rng.uniform(-40.0, 0.0, size=(rows, t)).astype(np.float32)
+    b_db = (one_minus * g_db).astype(np.float32)
+    _close(scan1p.onepole_core_plain(_t(b_db), _t(alpha)), _onepole_f64(b_db, alpha), atol=1e-5)
+
+
+def test_compressor_fused_plain_matches_pallas():
+    """K2's plain version == JAX compressor_fused_gain (interpret), knee 0 clamped."""
+    rng = np.random.default_rng(1)
+    rows, t = 6, 2500
+    x = (rng.normal(size=(rows, t)) * 0.3).astype(np.float32)
+    xd = np.roll(x, 1024, axis=-1)
+    thr = rng.uniform(-40.0, -5.0, rows).astype(np.float32)
+    ratio = rng.uniform(1.0, 10.0, rows).astype(np.float32)
+    knee = rng.uniform(3.0, 12.0, rows).astype(np.float32)
+    knee[0] = 0.0  # the 1e-3 clamp keeps the knee division finite
+    alpha = _attack_alpha(rng, rows)
+    makeup = rng.uniform(0.0, 6.0, rows).astype(np.float32)
+    args = (x, xd, thr, ratio, knee, alpha, makeup)
+    ref = jax_fused_gain(*map(jnp.asarray, args), 512, 1e-8, True)
+    out = comp_fused.compressor_fused_gain_plain(*map(_t, args))
+    assert np.isfinite(out.numpy()).all()
+    _close(out, ref)
+    _close(comp_fused.compressor_fused_gain(*map(_t, args)), ref)
+
+
+def test_kernel_wrappers_take_plain_version_on_cpu():
+    """On CPU tensors no kernel launches: both launch counters stay at 0."""
+    scan1p.onepole_core.launches = 0
+    comp_fused.compressor_fused_gain.launches = 0
+    rng = np.random.default_rng(2)
+    x = _t(rng.normal(size=(2, 2, 4096)) * 0.3)
+    p = {k: torch.full((2,), v) for k, v in _COMP_PARAMS.items()}
+    for smoother in ("auto", "fused", "scan"):
+        y = tops.compressor(x, SR, **p, lookahead_samples=1024, smoother=smoother)
+        assert y.shape == x.shape and torch.isfinite(y).all()
+    assert scan1p.onepole_core.launches == 0
+    assert comp_fused.compressor_fused_gain.launches == 0
+
+
+def test_kernel_wrappers_check_their_inputs():
+    b = torch.zeros(2, 64)
+    with pytest.raises(ValueError):
+        scan1p._check(b, torch.zeros(3))
+    with pytest.raises(TypeError):
+        scan1p._check(b.double(), torch.zeros(2, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        scan1p._check(torch.zeros(64, 2).t(), torch.zeros(2))
+    with pytest.raises(ValueError):
+        comp_fused._check(b, torch.zeros(2, 63), torch.zeros(5, 2))
+
+
+# --------------------------------------------------------------- compressor
+
+_COMP_PARAMS = dict(
+    threshold_db=-24.0, ratio=4.0, attack_ms=10.0, release_ms=100.0,
+    knee_db=6.0, makeup_gain_db=2.0,
+)
+
+
+def _comp_inputs(seed, bs=2, chs=2, t=8192):
+    rng = np.random.default_rng(seed)
+    env = np.linspace(0.05, 1.0, t, dtype=np.float32)
+    x = (rng.normal(size=(bs, chs, t)) * env).astype(np.float32)
+    params = dict(
+        threshold_db=rng.uniform(-40.0, -6.0, bs),
+        ratio=rng.uniform(1.5, 10.0, bs),
+        attack_ms=rng.uniform(5.0, 250.0, bs),
+        release_ms=rng.uniform(10.0, 250.0, bs),
+        knee_db=rng.uniform(3.0, 12.0, bs),
+        makeup_gain_db=rng.uniform(0.0, 6.0, bs),
+    )
+    return x, {k: v.astype(np.float32) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("lookahead", [2048, 1024])
+@pytest.mark.parametrize("smoother", ["scan", "fused", "auto"])
+def test_compressor_matches_jax_scan(smoother, lookahead):
+    """Every exact smoother of the port == JAX ops.compressor(smoother="scan")."""
+    x, p = _comp_inputs(3)
+    ref = jops.compressor(
+        jnp.asarray(x), SR, **{k: jnp.asarray(v) for k, v in p.items()},
+        lookahead_samples=lookahead, smoother="scan",
+    )
+    out = tops.compressor(
+        _t(x), SR, **{k: _t(v) for k, v in p.items()},
+        lookahead_samples=lookahead, smoother=smoother,
+    )
+    _close(out, ref)
+
+
+def test_compressor_fsm_and_gain_db_match_jax():
+    x, p = _comp_inputs(4, bs=3, chs=1, t=4096)
+    flat = x.reshape(3, -1)
+    for smoother in ("fsm", "scan"):
+        ref = jops.compressor_gain_db(
+            jnp.asarray(flat), SR, **{k: jnp.asarray(v) for k, v in p.items() if k != "makeup_gain_db"},
+            smoother=smoother,
+        )
+        out = tops.compressor_gain_db(
+            _t(flat), SR, **{k: _t(v) for k, v in p.items() if k != "makeup_gain_db"},
+            smoother=smoother,
+        )
+        _close(out, ref, atol=ATOL * 10)  # gains in dB, tens of dB in size
+    ref = jops.compressor(
+        jnp.asarray(x), SR, **{k: jnp.asarray(v) for k, v in p.items()},
+        lookahead_samples=512, smoother="fsm",
+    )
+    out = tops.compressor(
+        _t(x), SR, **{k: _t(v) for k, v in p.items()}, lookahead_samples=512, smoother="fsm"
+    )
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("smoother", ["decoupled", "ballistics"])
+def test_compressor_unported_smoothers_raise(smoother):
+    x, p = _comp_inputs(5, t=1024)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.compressor(_t(x), SR, **{k: _t(v) for k, v in p.items()}, smoother=smoother)
+
+
+# ---------------------------------------------------------------- basic ops
+
+
+def test_gain_db_to_linear_and_mono_to_stereo_match_jax():
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 3, 500)).astype(np.float32)
+    g = rng.uniform(-48.0, 48.0, size=(2, 3)).astype(np.float32)
+    _close(tops.db_to_linear(_t(g)), jops.db_to_linear(jnp.asarray(g)), atol=ATOL * 1e3)
+    _close(tops.gain(_t(x), SR, _t(g)), jops.gain(jnp.asarray(x), SR, jnp.asarray(g)), atol=ATOL * 1e2)
+    _close(tops.gain(_t(x), SR, _t(g[:, 0])), jops.gain(jnp.asarray(x), SR, jnp.asarray(g[:, 0])), atol=ATOL * 1e2)
+    _close(tops.mono_to_stereo(_t(x)), jops.mono_to_stereo(jnp.asarray(x)))
+
+
+def test_stereo_panner_matches_jax():
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 4, 300)).astype(np.float32)
+    pan = rng.uniform(0.0, 1.0, size=(2, 4)).astype(np.float32)
+    pan[0, :3] = [0.0, 0.5, 1.0]  # hard left, centre (-4.5 dB), hard right
+    out = tops.stereo_panner(_t(x), SR, _t(pan))
+    assert out.shape == (2, 2, 4, 300)
+    _close(out, jops.stereo_panner(jnp.asarray(x), SR, jnp.asarray(pan)))
+
+
+@pytest.mark.parametrize("n_fft,hop,t", [(2048, 128, 16384), (2048, 512, 5000), (512, 128, 1999)])
+def test_stft_matches_jax(n_fft, hop, t):
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(2, 1, t)).astype(np.float32)
+    ref = np.asarray(jops.stft(jnp.asarray(x), n_fft, hop))
+    out = tops.stft(_t(x), n_fft, hop).numpy()
+    assert out.shape == ref.shape == (2, 1, n_fft // 2 + 1, 1 + t // hop)
+    np.testing.assert_allclose(out.real, ref.real, rtol=0, atol=ATOL * 10)  # sums of 2048 terms
+    np.testing.assert_allclose(out.imag, ref.imag, rtol=0, atol=ATOL * 10)
+    np.testing.assert_array_equal(tops.hann_window(n_fft), jops.hann_window(n_fft))
+
+
+# ----------------------------------------------------------------------- EQ
+
+_EQ_KEYS = [
+    f"{band}_{p}"
+    for band in ("low_shelf", "band0", "band1", "band2", "band3", "high_shelf")
+    for p in ("gain_db", "cutoff_freq", "q_factor")
+]
+
+
+def _eq_params(rng, bs):
+    from diffmst_torch.console.ranges import advanced_param_ranges
+
+    rngs = advanced_param_ranges(SR)["parametric_eq"]
+    return {
+        k: rng.uniform(*rngs[k], size=bs).astype(np.float32) for k in _EQ_KEYS
+    }
+
+
+def test_biquad_and_response_match_jax():
+    rng = np.random.default_rng(9)
+    p = _eq_params(rng, 3)
+    for ftype, key in (("low_shelf", "low_shelf"), ("peaking", "band1"), ("high_shelf", "high_shelf")):
+        args = [p[f"{key}_gain_db"], p[f"{key}_cutoff_freq"], p[f"{key}_q_factor"]]
+        jb, ja = jops.biquad(*map(jnp.asarray, args), SR, ftype)
+        tb, ta = tops.biquad(*map(_t, args), SR, ftype)
+        _close(tb, jb)
+        _close(ta, ja)
+    ref = jops.parametric_eq_response(SR, 4096, **{k: jnp.asarray(v) for k, v in p.items()})
+    out = tops.parametric_eq_response(SR, 4096, **{k: _t(v) for k, v in p.items()})
+    _close(torch.view_as_real(out), np.stack([np.real(ref), np.imag(ref)], -1), atol=ATOL * 10)
+
+
+@pytest.mark.parametrize("fader", [False, True], ids=["no_fader", "fader"])
+def test_parametric_eq_fs_matches_jax(fader):
+    rng = np.random.default_rng(10)
+    bs, chs, t = 3, 2, 8192
+    x = (rng.normal(size=(bs, chs, t)) * 0.2).astype(np.float32)
+    p = _eq_params(rng, bs)
+    lin = rng.uniform(0.25, 4.0, bs).astype(np.float32) if fader else None
+    ref = jops.parametric_eq(
+        jnp.asarray(x), SR, linear_gain=None if lin is None else jnp.asarray(lin),
+        **{k: jnp.asarray(v) for k, v in p.items()},
+    )
+    out = tops.parametric_eq(
+        _t(x), SR, linear_gain=None if lin is None else _t(lin), **{k: _t(v) for k, v in p.items()}
+    )
+    _close(out, ref)
+    with pytest.raises(NotImplementedError, match="K5"):
+        tops.parametric_eq(_t(x), SR, method="scan", **{k: _t(v) for k, v in p.items()})
+
+
+# ----------------------------------------------------------------- loudness
+
+
+def test_integrated_loudness_matches_jax_host_path():
+    rng = np.random.default_rng(11)
+    for x in (
+        rng.normal(size=20000).astype(np.float32) * 0.1,
+        rng.normal(size=(30000, 2)).astype(np.float32) * 0.01,
+        np.zeros(20000, np.float32),
+        rng.normal(size=5000).astype(np.float32),  # shorter than one 400 ms block
+    ):
+        assert tops.integrated_loudness(x, SR) == jops.integrated_loudness(x, SR)
+    from diffmst_tpu.ops.loudness import k_weighting_sos
+
+    np.testing.assert_array_equal(tops.k_weighting_sos(SR), k_weighting_sos(SR))
+
+
+# ------------------------------------------------------------ import rules
+
+_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "diffmst_tpu"}
+
+
+def _port_sources():
+    files = sorted((REPO / "diffmst_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    return files
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_never_imports_jax(path):
+    """No module of the port, nor chip_smoke.py, imports JAX or the JAX package."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", "")) in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            names = [str(node.args[0].value)]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in _FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
