@@ -32,6 +32,10 @@ class ConsoleOutput(NamedTuple):
 
 
 def _on(device: torch.device, x) -> Optional[torch.Tensor]:
+    """x on ``device``: a floating tensor keeps its dtype, anything else
+    becomes float32."""
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return x.to(device)
     return None if x is None else torch.as_tensor(x, dtype=torch.float32, device=device)
 
 

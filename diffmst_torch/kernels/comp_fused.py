@@ -20,10 +20,27 @@ detector and the knee computed as each sample is loaded. On an NVIDIA H100
 80GB HBM3 at 700 W it takes 0.16 ms at 32 x 262,144, five times the bound
 (``chip_smoke.py``; PERF.md).
 
-The knee is clamped to at least 1e-3 dB (comp_fused.py:151) so the knee
-division never sees 0. The Pallas kernel also set the knee of its padded
-lanes to 1 (comp_fused.py:94-95); this kernel works on the rows as they are
-and pads none.
+The backward (``compressor_fused_backward``) replaces the VJP at
+comp_fused.py:167-176, which recomputed the forward through XLA's
+associative scan. PyTorch has no scan whose autograd could stand in, so it
+is a kernel too: a reverse-time scan (K1's machinery) of the envelope's
+cotangent u = dy * out * ln10/20 that writes dx and dx_delayed and sums the
+five parameter cotangents per row, deterministically. It needs the envelope
+g_s at every sample; a forward that will be differentiated writes it (4
+bytes a sample more) rather than the backward recomputing it, which would
+read x twice more and write the same envelope anyway. The backward reads x,
+x_delayed, g_s and dy and writes dx and dx_delayed: 24 bytes a sample.
+``compressor_fused_gain`` is an ``autograd.Function`` over both halves; the
+parameters' cotangents chain to ratio and the knee through ``_param_rows``.
+
+The kernels clamp the knee to at least 1e-3 dB (comp_fused.py:151) so the
+knee division never sees 0, and give it a cotangent only above 1e-3
+(comp_fused.py:175). The Pallas kernel also set the knee of its padded lanes
+to 1 (comp_fused.py:94-95); this kernel works on the rows as they are and
+pads none.
+
+On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -33,19 +50,47 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from diffmst_torch.kernels._build import check_launch, load_library
 from diffmst_torch.kernels.scan1p import onepole_core_plain
 
-__all__ = ["compressor_fused_gain", "compressor_fused_gain_plain"]
+__all__ = [
+    "compressor_fused_gain",
+    "compressor_fused_gain_plain",
+    "compressor_fused_backward",
+    "compressor_fused_backward_plain",
+]
 
 _LN10 = math.log(10.0)
+_KNEE_MIN = 1e-3
 
 
 def _param_rows(threshold_db, ratio, knee_db, alpha, makeup_db) -> torch.Tensor:
-    """(5, B): threshold, 1/ratio - 1, clamped knee, alpha, makeup."""
-    knee = torch.clamp(knee_db, min=1e-3)
-    return torch.stack([threshold_db, 1.0 / ratio - 1.0, knee, alpha, makeup_db], dim=0)
+    """(5, B): threshold, 1/ratio - 1, knee, alpha, makeup. The kernels and
+    the plain versions clamp the knee to at least 1e-3 themselves, and give
+    it a cotangent only where it is above 1e-3, as the JAX VJP does."""
+    return torch.stack([threshold_db, 1.0 / ratio - 1.0, knee_db, alpha, makeup_db], dim=0)
+
+
+def _level_db(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return (20.0 / _LN10) * torch.log(torch.clamp(torch.abs(x), min=eps))
+
+
+def _forward_plain(x, x_delayed, params, eps):
+    """(out, envelope g_s) from the (5, B) parameter rows."""
+    thr, irm1, knee, a, makeup = params[:, :, None]
+    knee = torch.clamp(knee, min=_KNEE_MIN)
+    over = _level_db(x, eps) - thr
+    in_knee = irm1 * torch.square(over + knee * 0.5) / (2.0 * knee)
+    above = irm1 * over
+    g_c = torch.where(
+        over <= -knee * 0.5,
+        torch.zeros_like(over),
+        torch.where(over >= knee * 0.5, above, in_knee),
+    )
+    g_s = onepole_core_plain((1.0 - a) * g_c, a[:, 0])
+    return x_delayed * torch.exp((_LN10 / 20.0) * (g_s + makeup)), g_s
 
 
 def compressor_fused_gain_plain(
@@ -60,45 +105,91 @@ def compressor_fused_gain_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of K2: the kernel's equations in float32 and
     K1's plain scan, which composes in float64 as the kernels do."""
-    thr, irm1, knee, a, makeup = _param_rows(
-        threshold_db, ratio, knee_db, alpha, makeup_db
-    )[:, :, None]
-    x_db = (20.0 / _LN10) * torch.log(torch.clamp(torch.abs(x), min=eps))
-    over = x_db - thr
-    in_knee = irm1 * torch.square(over + knee * 0.5) / (2.0 * knee)
-    above = irm1 * over
-    g_c = torch.where(
-        over <= -knee * 0.5,
-        torch.zeros_like(over),
-        torch.where(over >= knee * 0.5, above, in_knee),
-    )
-    g_s = onepole_core_plain((1.0 - a) * g_c, a[:, 0])
-    return x_delayed * torch.exp((_LN10 / 20.0) * (g_s + makeup))
+    params = _param_rows(threshold_db, ratio, knee_db, alpha, makeup_db)
+    return _forward_plain(x, x_delayed, params, eps)[0]
+
+
+def compressor_fused_backward_plain(x, x_delayed, params, envelope, dy, eps: float = 1e-8):
+    """Plain PyTorch version of K2's backward, written out (no autograd):
+    (dx, dx_delayed, dparams) for the cotangent dy of the output, with the
+    forward's envelope g_s and its (5, B) parameter rows. dparams (5, B)
+    holds the cotangents of the rows; its sums are taken in float64."""
+    thr, irm1, knee_raw, a, makeup = params[:, :, None]
+    knee = torch.clamp(knee_raw, min=_KNEE_MIN)
+    gain = torch.exp((_LN10 / 20.0) * (envelope + makeup))
+    dxd = dy * gain
+    u = dxd * x_delayed * (_LN10 / 20.0)  # cotangent of g_s[n]
+    s = onepole_core_plain(u.flip(-1), a[:, 0]).flip(-1)  # ... of the scan's state
+    dg = (1.0 - a) * s  # ... of g_c[n]
+
+    over = _level_db(x, eps) - thr
+    w = over + knee * 0.5
+    below, above = over <= -knee * 0.5, over >= knee * 0.5
+    zero = torch.zeros_like(over)
+
+    def knee_region(at_above, in_knee):
+        return torch.where(below, zero, torch.where(above, at_above, in_knee))
+
+    g_c = knee_region(irm1 * over, irm1 * (w * w) / (2.0 * knee))
+    d_over = knee_region(irm1.expand_as(over), irm1 * w / knee)
+    d_irm1 = knee_region(over, (w * w) / (2.0 * knee))
+    d_knee = knee_region(zero, irm1 * w * (knee - w) / (2.0 * knee * knee))
+    dx = torch.where(torch.abs(x) > eps, dg * d_over * (20.0 / _LN10) / x, zero)
+
+    g_prev = F.pad(envelope[:, :-1], (1, 0))
+
+    def row_sum(p, q):
+        return (p.double() * q.double()).sum(dim=-1)
+
+    dparams = torch.stack([
+        -row_sum(dg, d_over),
+        row_sum(dg, d_irm1),
+        torch.where(knee_raw[:, 0] > _KNEE_MIN, row_sum(dg, d_knee), 0.0),
+        row_sum(s, g_prev.double() - g_c.double()),
+        u.double().sum(dim=-1),
+    ]).to(x.dtype)
+    return dx, dxd, dparams
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library("comp_fused.cu")
-    lib.diffmst_compressor_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
-    lib.diffmst_compressor_scratch_bytes.restype = ctypes.c_longlong
+    for fn in (lib.diffmst_compressor_scratch_bytes, lib.diffmst_compressor_backward_scratch_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
+        fn.restype = ctypes.c_longlong
     lib.diffmst_compressor_fused_gain.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
         ctypes.c_void_p,
     ]
     lib.diffmst_compressor_fused_gain.restype = ctypes.c_int
+    lib.diffmst_compressor_backward.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.diffmst_compressor_backward.restype = ctypes.c_int
     return lib
 
 
-def _check(x: torch.Tensor, x_delayed: torch.Tensor, params: torch.Tensor) -> None:
-    for name, t in (("x", x), ("x_delayed", x_delayed), ("params", params)):
+def _check(x: torch.Tensor, x_delayed: torch.Tensor, params: torch.Tensor, *more) -> None:
+    """x, x_delayed (B, T), params (5, B); ``more`` tensors shaped as x."""
+    named = (("x", x), ("x_delayed", x_delayed), ("params", params)) + tuple(
+        (f"input {i + 4}", t) for i, t in enumerate(more)
+    )
+    for name, t in named:
         if t.dtype != torch.float32:
             raise TypeError(f"compressor_fused_gain takes float32 {name}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"x on {x.device} but {name} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"compressor_fused_gain takes a contiguous {name}")
-    if x.ndim != 2 or x_delayed.shape != x.shape or params.shape != (5, x.shape[0]):
+    if (
+        x.ndim != 2
+        or x_delayed.shape != x.shape
+        or params.shape != (5, x.shape[0])
+        or any(t.shape != x.shape for t in more)
+    ):
         raise ValueError(
             f"compressor_fused_gain takes x, x_delayed (B, T) and (B,) parameters; got "
             f"{tuple(x.shape)}, {tuple(x_delayed.shape)}, params {tuple(params.shape)}"
@@ -109,11 +200,13 @@ def _check(x: torch.Tensor, x_delayed: torch.Tensor, params: torch.Tensor) -> No
         raise ValueError(f"the compressor_fused_gain kernel runs on a CUDA device, not {x.device}")
 
 
-def _launch(x: torch.Tensor, x_delayed: torch.Tensor, params: torch.Tensor, eps: float):
+def _launch(x, x_delayed, params, eps: float, envelope: bool):
+    """(out, g_s or None): the envelope is written only when asked for."""
     _check(x, x_delayed, params)
     out = torch.empty_like(x)
+    env = torch.empty_like(x) if envelope else None
     if x.numel() == 0:
-        return out
+        return out, env
     rows, t = x.shape
     lib = _lib()
     with torch.cuda.device(x.device):
@@ -122,24 +215,59 @@ def _launch(x: torch.Tensor, x_delayed: torch.Tensor, params: torch.Tensor, eps:
         )
         err = lib.diffmst_compressor_fused_gain(
             x.data_ptr(), x_delayed.data_ptr(), params.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), rows, t, eps, torch.cuda.current_stream().cuda_stream,
+            None if env is None else env.data_ptr(), scratch.data_ptr(), rows, t, eps,
+            torch.cuda.current_stream().cuda_stream,
         )
     check_launch(lib, err, "compressor_fused_gain")
     compressor_fused_gain.launches += 1
-    return out
+    return out, env
 
 
-class _CompressorKernel(torch.autograd.Function):
+def _launch_backward(x, x_delayed, params, envelope, dy, eps: float):
+    _check(x, x_delayed, params, envelope, dy)
+    dx = torch.empty_like(x)
+    dxd = torch.empty_like(x)
+    dparams = torch.empty_like(params)
+    if x.numel() == 0:
+        return dx, dxd, dparams.zero_()
+    rows, t = x.shape
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        scratch = torch.empty(
+            lib.diffmst_compressor_backward_scratch_bytes(rows, t), dtype=torch.uint8,
+            device=x.device,
+        )
+        err = lib.diffmst_compressor_backward(
+            x.data_ptr(), x_delayed.data_ptr(), params.data_ptr(), envelope.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), dxd.data_ptr(), dparams.data_ptr(),
+            scratch.data_ptr(), rows, t, eps, torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(lib, err, "compressor_fused_backward")
+    compressor_fused_backward.launches += 1
+    return dx, dxd, dparams
+
+
+class _Compressor(torch.autograd.Function):
+    """K2 with its backward; ``plain`` picks the plain versions of both."""
+
     @staticmethod
-    def forward(ctx, x, x_delayed, params, eps):
-        return _launch(x, x_delayed, params, eps)
+    def forward(ctx, x, x_delayed, params, eps: float, plain: bool):
+        differentiated = any(ctx.needs_input_grad[:3])
+        if plain:
+            out, env = _forward_plain(x, x_delayed, params, eps)
+        else:
+            out, env = _launch(x, x_delayed, params, eps, envelope=differentiated)
+        ctx.eps, ctx.plain = eps, plain
+        if differentiated:
+            ctx.save_for_backward(x, x_delayed, params, env)
+        return out
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "the K2 backward (the recompute VJP of diffmst_tpu "
-            "kernels/comp_fused.py:167-176) is not ported yet: ROADMAP Queue 2"
-        )
+        x, x_delayed, params, env = ctx.saved_tensors
+        backward = compressor_fused_backward_plain if ctx.plain else _launch_backward
+        dx, dxd, dparams = backward(x, x_delayed, params, env, dy.contiguous(), ctx.eps)
+        return dx, dxd, dparams, None, None
 
 
 def compressor_fused_gain(
@@ -152,15 +280,21 @@ def compressor_fused_gain(
     makeup_db: torch.Tensor,
     eps: float = 1e-8,
 ) -> torch.Tensor:
-    """Compressed x_delayed, gain detected on x. CPU tensors take the plain
-    version, CUDA tensors the kernel."""
-    if x.device.type == "cpu":
-        return compressor_fused_gain_plain(
-            x, x_delayed, threshold_db, ratio, knee_db, alpha, makeup_db, eps
-        )
+    """Compressed x_delayed, gain detected on x; differentiable in all seven
+    tensors. CPU tensors take the plain versions, CUDA tensors the kernels."""
     params = _param_rows(threshold_db, ratio, knee_db, alpha, makeup_db).contiguous()
-    return _CompressorKernel.apply(x, x_delayed, params, eps)
+    return _Compressor.apply(x, x_delayed, params, eps, x.device.type == "cpu")
 
 
-# Kernel launches (CUDA calls only); callers reset it to 0 to count a run.
+def compressor_fused_backward(x, x_delayed, params, envelope, dy, eps: float = 1e-8):
+    """(dx, dx_delayed, dparams) of K2 for the cotangent dy, from the
+    forward's inputs, its (5, B) parameter rows and its envelope g_s. CPU
+    tensors take the plain version, CUDA tensors the kernel."""
+    if x.device.type == "cpu":
+        return compressor_fused_backward_plain(x, x_delayed, params, envelope, dy, eps)
+    return _launch_backward(x, x_delayed, params, envelope, dy, eps)
+
+
+# Kernel launches (CUDA calls only); callers reset them to 0 to count a run.
 compressor_fused_gain.launches = 0
+compressor_fused_backward.launches = 0

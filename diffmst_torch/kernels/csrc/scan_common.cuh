@@ -19,6 +19,16 @@
 // Pass 3 keeps the maps of its loads in registers, so a sample's inputs are
 // read twice in all (passes 1 and 3) and its output written once.
 //
+// An Op that declares `static constexpr int kSums = S` (S > 0) also reduces
+// over each row: its store(row, t, y, sums) adds to S double accumulators.
+// Pass 3 sums them over the block (warp shuffles, then the warps in order)
+// into one partial per (row, chunk), and a fourth pass, row_sums, adds a
+// row's partials in chunk order. No atomics: the sums are deterministic.
+//
+// A backward (adjoint) scan runs backwards in time. Its Op maps the scan's
+// t to the sample T-1-t in both step() and store(), so the passes need not
+// know the direction.
+//
 // Maps are composed in double precision. With a pole near 1 (a = 0.9998 for
 // a 250 ms attack at 44.1 kHz) a float32 scan's rounding piles up to about
 // 5e-4 dB on gains of tens of dB, whichever order it composes in; in double
@@ -28,6 +38,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace diffmst {
@@ -36,6 +47,12 @@ constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kChunk = kThreads * kItems;  // samples per block
 constexpr int kWarps = kThreads / 32;
+
+// Op::kSums, or 0 for an Op that declares none.
+template <class Op, class = void>
+struct op_sums : std::integral_constant<int, 0> {};
+template <class Op>
+struct op_sums<Op, std::void_t<decltype(Op::kSums)>> : std::integral_constant<int, Op::kSums> {};
 
 // y -> a*y + b
 struct Affine {
@@ -127,9 +144,36 @@ chunk_carries(const Affine* totals, double* carries, int n_chunks) {
   }
 }
 
+// Sums each of v[0..S) over the block; the sums are valid in thread 0. The
+// order of the additions is fixed, so the result does not vary between runs.
+template <int S>
+__device__ __forceinline__ void block_sum(double (&v)[S]) {
+  __shared__ double warp_sums[kWarps][S];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    double x = v[k];
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(0xffffffffu, x, d);
+    if (lane == 0) warp_sums[warp][k] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      double x = 0.0;
+      for (int w = 0; w < kWarps; ++w) x += warp_sums[w][k];
+      v[k] = x;
+    }
+  }
+}
+
+// partials[row, chunk, 0..S) receives the block's sums when the Op has any.
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
-chunk_apply(Op op, const double* carries, int64_t T, int n_chunks) {
+chunk_apply(Op op, const double* carries, int64_t T, int n_chunks, double* partials) {
+  constexpr int S = op_sums<Op>::value;
   const int row = blockIdx.y;
   const int64_t t0 = (int64_t)blockIdx.x * kChunk + (int64_t)threadIdx.x * kItems;
   Affine steps[kItems];
@@ -142,26 +186,54 @@ chunk_apply(Op op, const double* carries, int64_t T, int n_chunks) {
   Affine total;
   const Affine before = block_exclusive_scan(acc, &total);
   double y = before.a * carries[(int64_t)row * n_chunks + blockIdx.x] + before.b;
+  double sums[S > 0 ? S : 1] = {};
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     if (t0 + i < T) {
       y = steps[i].a * y + steps[i].b;
-      op.store(row, t0 + i, (float)y);
+      if constexpr (S > 0) {
+        op.store(row, t0 + i, (float)y, sums);
+      } else {
+        op.store(row, t0 + i, (float)y);
+      }
     }
+  }
+  if constexpr (S > 0) {
+    block_sum<S>(sums);
+    if (threadIdx.x == 0) {
+      double* out = partials + ((int64_t)row * n_chunks + blockIdx.x) * S;
+#pragma unroll
+      for (int k = 0; k < S; ++k) out[k] = sums[k];
+    }
+  }
+}
+
+// out[k * rows + row] = the sum of partials[row, :, k], added in chunk order.
+__global__ void row_sums(const double* partials, float* out, int rows, int n_chunks, int S) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  for (int k = 0; k < S; ++k) {
+    double x = 0.0;
+    for (int c = 0; c < n_chunks; ++c) x += partials[((int64_t)row * n_chunks + c) * S + k];
+    out[(int64_t)k * rows + row] = (float)x;
   }
 }
 
 inline int num_chunks(int64_t T) { return (int)((T + kChunk - 1) / kChunk); }
 
-// Bytes of scratch a scan of (rows, T) needs: the chunk totals, then the carries.
-inline long long scratch_bytes(int rows, int64_t T) {
+// Bytes of scratch a scan of (rows, T) needs: the chunk totals, the carries
+// and, for an Op with S sums, S partials a chunk.
+inline long long scratch_bytes(int rows, int64_t T, int sums = 0) {
   const long long n = (long long)rows * num_chunks(T);
-  return n * (long long)(sizeof(Affine) + sizeof(double));
+  return n * (long long)(sizeof(Affine) + sizeof(double) + sums * sizeof(double));
 }
 
-// Runs the three passes on `stream`; returns the first launch error (0 = none).
+// Runs the three passes on `stream`, and row_sums into `sums_out` ((S, rows)
+// float32) for an Op with S sums; returns the first launch error (0 = none).
 template <class Op>
-int scan_rows(const Op& op, void* scratch, int rows, int64_t T, cudaStream_t stream) {
+int scan_rows(const Op& op, void* scratch, int rows, int64_t T, cudaStream_t stream,
+              float* sums_out = nullptr) {
+  constexpr int S = op_sums<Op>::value;
   const int n_chunks = num_chunks(T);
   Affine* totals = static_cast<Affine*>(scratch);
   double* carries = reinterpret_cast<double*>(totals + (long long)rows * n_chunks);
@@ -172,7 +244,11 @@ int scan_rows(const Op& op, void* scratch, int rows, int64_t T, cudaStream_t str
   chunk_carries<<<rows, kThreads, 0, stream>>>(totals, carries, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  chunk_apply<Op><<<grid, kThreads, 0, stream>>>(op, carries, T, n_chunks);
+  double* partials = carries + (long long)rows * n_chunks;
+  chunk_apply<Op><<<grid, kThreads, 0, stream>>>(op, carries, T, n_chunks, partials);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 0) return (int)err;
+  row_sums<<<(rows + 127) / 128, 128, 0, stream>>>(partials, sums_out, rows, n_chunks, S);
   return (int)cudaGetLastError();
 }
 

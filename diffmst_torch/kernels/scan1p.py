@@ -1,4 +1,4 @@
-"""K1: first-order linear recurrence (one-pole) scan along time.
+"""K1: first-order linear recurrence (one-pole) scan along time, and its backward.
 
 ``onepole_core(b, alpha)`` computes y[n] = a * y[n-1] + b[n] over the last
 axis of (B, T) float32 rows from y[-1] = 0, with ``alpha`` of shape (B,) (one
@@ -21,8 +21,19 @@ and rounds once, as float32, so a pole near 1 costs it no accuracy. On an
 NVIDIA H100 80GB HBM3 at 700 W it takes 0.12 ms at 32 x 262,144, six times
 the bound (``chip_smoke.py``; PERF.md).
 
-On a CPU tensor the wrapper runs ``onepole_core_plain``, the same three-level
-algorithm in PyTorch ops; on a CUDA tensor it launches the kernel or raises.
+The backward, ``onepole_core_backward(dy, alpha, y)``, replaces the VJPs of
+``onepole_scan`` (scan1p.py:142-150) and of ``onepole_scan_tv`` (K4,
+scan1p.py:176-187), which launched the Pallas scan on time-reversed rows.
+The adjoint s[n] = dy[n] + a[n+1] * s[n+1] is the same scan run backwards
+in time (the kernel's Op reads sample T-1-t at step t), so it shares the
+forward's machinery: db = s, and dalpha = s[n] * y[n-1] per sample, or its
+sum over the row, reduced per block and then per row in a fixed order. It
+reads dy and y and writes db, 12 bytes a sample (20 with a per-sample
+alpha). ``onepole_core`` is an ``autograd.Function`` over both halves.
+
+On a CPU tensor each wrapper runs its plain PyTorch version
+(``onepole_core_plain``, ``onepole_core_backward_plain``); on a CUDA tensor
+it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -35,7 +46,12 @@ import torch.nn.functional as F
 
 from diffmst_torch.kernels._build import check_launch, load_library
 
-__all__ = ["onepole_core", "onepole_core_plain"]
+__all__ = [
+    "onepole_core",
+    "onepole_core_plain",
+    "onepole_core_backward",
+    "onepole_core_backward_plain",
+]
 
 
 def _hillis_steele(A: torch.Tensor, B: torch.Tensor):
@@ -72,30 +88,57 @@ def onepole_core_plain(b: torch.Tensor, alpha: torch.Tensor, chunk: int = 512) -
     return y.reshape(bs, n_chunks * chunk)[:, :t].to(b.dtype)
 
 
+def onepole_core_backward_plain(dy: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor):
+    """Plain PyTorch version of K1's backward: (db, dalpha) for the output
+    ``y`` and its cotangent ``dy``. The adjoint runs through
+    ``onepole_core_plain`` on time-reversed rows, with a per-sample alpha's
+    coefficients shifted by one (as scan1p.py:181-183); dalpha's products
+    and row sums are taken in float64."""
+    if alpha.ndim == 2:
+        a_rev = alpha.flip(-1)
+        a_rev = F.pad(a_rev[:, :-1], (1, 0), value=1.0)  # a[n+1]; the first is moot
+    else:
+        a_rev = alpha
+    s = onepole_core_plain(dy.flip(-1), a_rev).flip(-1)
+    y_prev = F.pad(y[:, :-1], (1, 0))
+    prod = s.double() * y_prev.double()
+    dalpha = prod if alpha.ndim == 2 else prod.sum(dim=-1)
+    return s, dalpha.to(alpha.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library("scan1p.cu")
-    lib.diffmst_onepole_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
-    lib.diffmst_onepole_scratch_bytes.restype = ctypes.c_longlong
+    for fn in (lib.diffmst_onepole_scratch_bytes, lib.diffmst_onepole_backward_scratch_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
+        fn.restype = ctypes.c_longlong
     lib.diffmst_onepole_core.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
     ]
     lib.diffmst_onepole_core.restype = ctypes.c_int
+    lib.diffmst_onepole_backward.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    lib.diffmst_onepole_backward.restype = ctypes.c_int
     return lib
 
 
-def _check(b: torch.Tensor, alpha: torch.Tensor) -> None:
-    if b.dtype != torch.float32 or alpha.dtype != torch.float32:
+def _check(b: torch.Tensor, alpha: torch.Tensor, *more: torch.Tensor) -> None:
+    """``b`` (B, T) and ``alpha`` (B,) or (B, T); ``more`` tensors shaped as b."""
+    if any(t.dtype != torch.float32 for t in (b, alpha, *more)):
         raise TypeError(f"onepole_core takes float32, got {b.dtype} and {alpha.dtype}")
     if b.ndim != 2 or alpha.shape not in ((b.shape[0],), tuple(b.shape)):
         raise ValueError(
             f"onepole_core takes b (B, T) and alpha (B,) or (B, T); got "
             f"{tuple(b.shape)} and {tuple(alpha.shape)}"
         )
-    if alpha.device != b.device:
-        raise ValueError(f"b on {b.device} but alpha on {alpha.device}")
-    if not (b.is_contiguous() and alpha.is_contiguous()):
+    if any(t.shape != b.shape for t in more):
+        raise ValueError(f"onepole_core_backward takes dy and y of b's shape {tuple(b.shape)}")
+    if any(t.device != b.device for t in (alpha, *more)):
+        raise ValueError(f"b on {b.device} but alpha, dy or y elsewhere")
+    if not all(t.is_contiguous() for t in (b, alpha, *more)):
         raise ValueError("onepole_core takes contiguous tensors")
     if b.shape[0] > 65535:
         raise ValueError(f"onepole_core takes at most 65535 rows, got {b.shape[0]}")
@@ -123,26 +166,69 @@ def _launch(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return y
 
 
-class _OnepoleKernel(torch.autograd.Function):
+def _launch_backward(dy: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor):
+    _check(dy, alpha, y)
+    db = torch.empty_like(dy)
+    dalpha = torch.empty_like(alpha)
+    if dy.numel() == 0:
+        return db, dalpha.zero_()
+    rows, t = dy.shape
+    per_sample = alpha.ndim == 2
+    lib = _lib()
+    with torch.cuda.device(dy.device):
+        scratch = torch.empty(
+            lib.diffmst_onepole_backward_scratch_bytes(rows, t), dtype=torch.uint8,
+            device=dy.device,
+        )
+        err = lib.diffmst_onepole_backward(
+            dy.data_ptr(), alpha.data_ptr(), int(per_sample), y.data_ptr(), db.data_ptr(),
+            dalpha.data_ptr(), scratch.data_ptr(), rows, t,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(lib, err, "onepole_core_backward")
+    if per_sample:
+        onepole_core_backward.launches_per_sample += 1
+    else:
+        onepole_core_backward.launches += 1
+    return db, dalpha
+
+
+class _Onepole(torch.autograd.Function):
+    """K1 with its backward; ``plain`` picks the plain versions of both."""
+
     @staticmethod
-    def forward(ctx, b, alpha):
-        return _launch(b, alpha)
+    def forward(ctx, b, alpha, plain: bool):
+        y = onepole_core_plain(b, alpha) if plain else _launch(b, alpha)
+        ctx.plain = plain
+        ctx.save_for_backward(alpha, y)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "the K1 backward (the reverse-time one-pole, diffmst_tpu "
-            "kernels/scan1p.py:142-150) is not ported yet: ROADMAP Queue 2"
-        )
+        alpha, y = ctx.saved_tensors
+        backward = onepole_core_backward_plain if ctx.plain else _launch_backward
+        db, dalpha = backward(dy.contiguous(), alpha, y)
+        return db, (dalpha if ctx.needs_input_grad[1] else None), None
 
 
 def onepole_core(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """y[n] = alpha * y[n-1] + b[n] over the last axis of b (B, T); alpha (B,)
-    or (B, T). CPU tensors take the plain version, CUDA tensors the kernel."""
-    if b.device.type == "cpu":
-        return onepole_core_plain(b, alpha)
-    return _OnepoleKernel.apply(b, alpha)
+    or (B, T). Differentiable in b and alpha. CPU tensors take the plain
+    versions, CUDA tensors the kernels."""
+    return _Onepole.apply(b, alpha, b.device.type == "cpu")
 
 
-# Kernel launches (CUDA calls only); callers reset it to 0 to count a run.
+def onepole_core_backward(dy: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor):
+    """(db, dalpha) of ``y = onepole_core(b, alpha)`` for the cotangent dy:
+    dalpha has alpha's shape. CPU tensors take the plain version, CUDA
+    tensors the kernel."""
+    if dy.device.type == "cpu":
+        return onepole_core_backward_plain(dy, alpha, y)
+    return _launch_backward(dy, alpha, y)
+
+
+# Kernel launches (CUDA calls only); callers reset them to 0 to count a run.
+# The backward counts its per-row (K1) and per-sample (K4) launches apart.
 onepole_core.launches = 0
+onepole_core_backward.launches = 0
+onepole_core_backward.launches_per_sample = 0

@@ -3,8 +3,16 @@
 Port of ``diffmst_tpu/models/cnn14.py``: six double-conv blocks (3x3 convs,
 BatchNorm, ReLU, average pooling on the schedule below), a mean over
 frequency, max + mean over time, and a linear head. Convolutions are NCHW
-(the Flax model is NHWC). BatchNorm always normalizes with its running
-statistics: the port serves, and training comes later.
+(the Flax model is NHWC).
+
+BatchNorm follows Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, with
+the ``train`` flag passed down every call as in the Flax model (the module's
+``training`` attribute plays no part). With ``train=False`` it normalizes with
+the running statistics. With ``train=True`` it normalizes with the batch's
+mean and biased variance over (batch, bins, frames) and updates the running
+statistics to 0.9 * running + 0.1 * batch, the variance biased too.
+``F.batch_norm(training=True)`` would update running_var with the unbiased
+variance, so the update is written out, under ``no_grad``.
 
 Parameter names follow the reference (``conv_block1.conv1.weight``,
 ``conv_block1.bn1.running_mean``, ``fc.weight``, ...).
@@ -18,6 +26,8 @@ from torch import nn
 
 __all__ = ["ConvBlock", "Cnn14"]
 
+BN_MOMENTUM = 0.9  # running = 0.9 * running + 0.1 * batch (diffmst_tpu/models/cnn14.py:47-54)
+
 
 class ConvBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
@@ -28,15 +38,22 @@ class ConvBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(out_channels, eps=1e-5)
 
     @staticmethod
-    def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps
-        )
+    def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(
+                x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps
+            )
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        # batch statistics, biased variance; running statistics left alone
+        return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
-    def forward(self, x: torch.Tensor, pool_size) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pool_size, train: bool = False) -> torch.Tensor:
         """x: (bs, C, H, W)."""
-        x = F.relu(self._bn(self.bn1, self.conv1(x)))
-        x = F.relu(self._bn(self.bn2, self.conv2(x)))
+        x = F.relu(self._bn(self.bn1, self.conv1(x), train))
+        x = F.relu(self._bn(self.bn2, self.conv2(x), train))
         return F.avg_pool2d(x, pool_size)  # floors, as Flax VALID pooling does
 
 
@@ -51,7 +68,7 @@ class Cnn14(nn.Module):
             setattr(self, f"conv_block{i + 1}", ConvBlock(chans[i], chans[i + 1]))
         self.fc = nn.Linear(chans[-1], num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x: (bs, chs, bins, frames) spectrogram -> (bs, num_classes)."""
         if x.shape[2] < 1024 or x.shape[3] < 128:
             raise ValueError(
@@ -60,7 +77,7 @@ class Cnn14(nn.Module):
                 f"and seq_len >= 128 * hop_length."
             )
         for i, pool in enumerate(self.POOLS):
-            x = getattr(self, f"conv_block{i + 1}")(x, pool)
+            x = getattr(self, f"conv_block{i + 1}")(x, pool, train)
         x = x.mean(dim=2)  # mean over frequency -> (bs, C, frames')
         x = x.amax(dim=2) + x.mean(dim=2)  # max + mean over time
         return self.fc(x)

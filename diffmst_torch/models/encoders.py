@@ -33,9 +33,10 @@ class SpectrogramEncoder(nn.Module):
         self.spec_eps = spec_eps
         self.model = Cnn14(embed_dim, n_inputs=n_inputs, base_width=cnn_base_width)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(bs, chs, seq_len) waveform -> (bs, embed_dim)."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(bs, chs, seq_len) waveform -> (bs, embed_dim); ``train`` selects
+        Cnn14's BatchNorm mode."""
         bs, chs, seq_len = x.shape
         X = stft(x.reshape(bs * chs, seq_len), self.n_fft, self.hop_length)
         mag = torch.pow(X.abs() + self.spec_eps, self.spec_power)
-        return self.model(mag.reshape(bs, chs, *mag.shape[-2:]))
+        return self.model(mag.reshape(bs, chs, *mag.shape[-2:]), train)

@@ -40,20 +40,22 @@ class MixStyleTransferModel(nn.Module):
         self.controller = controller
         self.sum_and_diff = sum_and_diff
 
-    def encode_tracks(self, tracks: torch.Tensor) -> torch.Tensor:
-        """(bs, num_tracks, seq_len) -> (bs, num_tracks, embed_dim)."""
+    def encode_tracks(self, tracks: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(bs, num_tracks, seq_len) -> (bs, num_tracks, embed_dim). Every
+        track, padded ones included, enters the BatchNorm statistics, as in
+        the Flax model."""
         bs, num_tracks, seq_len = tracks.shape
-        e = self.track_encoder(tracks.reshape(bs * num_tracks, 1, seq_len))
+        e = self.track_encoder(tracks.reshape(bs * num_tracks, 1, seq_len), train)
         return e.reshape(bs, num_tracks, -1)
 
-    def encode_mix(self, ref_mix: torch.Tensor) -> torch.Tensor:
+    def encode_mix(self, ref_mix: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(bs, 2, seq_len) -> (bs, 2, embed_dim); mid/side with sum_and_diff."""
         if self.sum_and_diff:
             mid = ref_mix[:, 0:1, :] + ref_mix[:, 1:2, :]
             side = ref_mix[:, 0:1, :] - ref_mix[:, 1:2, :]
-            return torch.stack([self.mix_encoder(mid), self.mix_encoder(side)], dim=1)
+            return torch.stack([self.mix_encoder(mid, train), self.mix_encoder(side, train)], dim=1)
         bs = ref_mix.shape[0]
-        e = self.mix_encoder(ref_mix.reshape(bs * 2, 1, ref_mix.shape[-1]))
+        e = self.mix_encoder(ref_mix.reshape(bs * 2, 1, ref_mix.shape[-1]), train)
         return e.reshape(bs, 2, -1)
 
     def forward(
@@ -61,11 +63,14 @@ class MixStyleTransferModel(nn.Module):
         tracks: torch.Tensor,
         ref_mix: torch.Tensor,
         track_padding_mask: Optional[torch.Tensor] = None,
+        train: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(bs, num_tracks, T) stems, (bs, 2, T) reference -> (track_params,
-        fx_bus_params, master_bus_params), all in (0, 1)."""
+        fx_bus_params, master_bus_params), all in (0, 1). ``train=True``
+        runs BatchNorm on batch statistics and updates its running ones, as
+        the Flax model's ``train`` (diffmst_tpu/models/mst_model.py:64-89)."""
         return self.controller(
-            self.encode_tracks(tracks), self.encode_mix(ref_mix), track_padding_mask
+            self.encode_tracks(tracks, train), self.encode_mix(ref_mix, train), track_padding_mask
         )
 
     @torch.no_grad()

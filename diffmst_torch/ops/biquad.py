@@ -66,15 +66,15 @@ def sos_frequency_response(b: torch.Tensor, a: torch.Tensor, n_fft: int) -> torc
     Each 3-tap polynomial is evaluated directly, multiplied through by
     e^{jw} (the factor cancels in B/A): p1 + (p0 + p2) cos w + j (p0 - p2)
     sin w, with cos w - 1 = -2 sin^2(w/2) so low bins keep their precision
-    in float32.
+    in float32. The frequency grid takes b's dtype.
 
     Args:
       b, a: (..., n_sections, 3).
 
     Returns:
-      (..., n_fft // 2 + 1) complex64.
+      (..., n_fft // 2 + 1) complex64 (complex128 for float64 b).
     """
-    k = torch.arange(n_fft // 2 + 1, dtype=torch.float32, device=b.device)
+    k = torch.arange(n_fft // 2 + 1, dtype=b.dtype, device=b.device)
     half_w = (math.pi / n_fft) * k
     sin_half = torch.sin(half_w)
     cos_m1 = -2.0 * sin_half * sin_half  # cos w - 1

@@ -36,7 +36,7 @@ def stft(
     if win_length is None:
         win_length = n_fft
     if window is None:
-        window = torch.from_numpy(hann_window(win_length).copy()).to(x.device)
+        window = torch.from_numpy(hann_window(win_length).copy()).to(x.device, x.dtype)
     lead = x.shape[:-1]
     X = torch.stft(
         x.reshape(-1, x.shape[-1]),

@@ -1,0 +1,366 @@
+"""Training system: the Method-1 / Method-2 train step.
+
+Port of ``diffmst_tpu/train/system.py``. One step, as ``System._common``
+(system.py:357-505) takes it:
+
+  draw uniform console parameters and render the reference mix without
+  gradients (no input or output fader) -> peak-normalize -> split the mix
+  and the tracks at the middle -> the model sees (tracks_b, ref_mix_a),
+  Cnn14's BatchNorm in training mode -> the console renders tracks_b with
+  the predicted parameters, with gradients -> MRSTFT loss against ref_mix_b
+  -> clip the gradients at global norm 10 -> Adam.
+
+Method 2 (``generate_mix=False``) feeds the batch's real reference mix to
+both the model and the loss.
+
+JAX's jitted pure step becomes a stateful object: the model holds the
+parameters and the BatchNorm statistics, the ``torch.optim.Adam`` its
+moments, and ``train_step`` updates them in place. Randomness comes from an
+explicit ``torch.Generator``; a caller can instead pass the reference-mix
+parameters (``ref_params``), as JAX's System takes ``ke_params``, which is
+how the tests feed the port the JAX draw.
+
+Not ported: the mesh, the host-side knowledge-engineering mix_fn, and the
+TPU-era optimizer knobs ``adam_mu_dtype`` and ``flatten_optimizer``, which
+raise (ROADMAP Queue 1, items 7 and 10; the mesh is item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from diffmst_torch.mixing import naive_random_mix
+from diffmst_torch.utils.audio import batch_stereo_peak_normalize
+from diffmst_torch.utils.device import DeviceLike, resolve_device
+
+__all__ = ["SystemConfig", "EffectFlags", "Batch", "System", "lr_schedule"]
+
+_ADAM_EPS = 1e-8  # optax.adam's and torch.optim.Adam's default
+
+
+class Batch(NamedTuple):
+    """One training batch (the dataset item, diffmst_tpu system.py:70)."""
+
+    tracks: torch.Tensor  # (bs, max_tracks, seq_len) mono stems
+    instrument_id: torch.Tensor  # (bs, max_tracks) int
+    stereo_info: torch.Tensor  # (bs, max_tracks) int
+    track_padding: torch.Tensor  # (bs, max_tracks) bool, True = padded
+    ref_mix: torch.Tensor  # (bs, 2, seq_len) real reference (Method 2)
+
+
+class EffectFlags(NamedTuple):
+    """Console toggles for one curriculum stage."""
+
+    use_track_eq: bool = True
+    use_track_compressor: bool = True
+    use_fx_bus: bool = False
+    use_master_bus: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemConfig:
+    """The JAX SystemConfig's fields (system.py:90), with its defaults."""
+
+    generate_mix: bool = True
+    use_mix_loss: bool = True
+    use_param_loss: bool = False
+    active_eq_epoch: int = 0
+    active_compressor_epoch: int = 0
+    active_fx_bus_epoch: int = 1000  # fx bus disabled in all shipped configs
+    active_master_bus_epoch: int = 0
+    lr: float = 1e-5
+    max_epochs: int = 800
+    steps_per_epoch: int = 5000  # 20k examples / batch 4
+    schedule: str = "step"  # "step" (x0.1 at 0.85 and 0.95 of the steps) | "cosine" | "none"
+    grad_clip: float = 10.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    # Gradients average over this many steps before one optimizer update
+    # (optax.MultiSteps); the steps between update nothing.
+    accumulate_grad_batches: int = 1
+    # When > 0, an update whose gradients are not all finite is dropped, up
+    # to this many in a row (optax.apply_if_finite); 0 applies every update.
+    skip_nonfinite_updates: int = 0
+    # TPU-era memory and layout knobs of the JAX package; not ported.
+    adam_mu_dtype: Optional[str] = None
+    flatten_optimizer: bool = False
+
+
+def lr_schedule(config: SystemConfig) -> Callable[[int], float]:
+    """The learning rate after ``count`` optimizer updates (optax's schedules)."""
+    total = config.max_epochs * config.steps_per_epoch
+    if config.schedule == "step":
+        # optax.piecewise_constant_schedule: scaled from count >= boundary on
+        bounds = (int(total * 0.85), int(total * 0.95))
+        return lambda count: config.lr * 0.1 ** sum(count >= b for b in bounds)
+    if config.schedule == "cosine":
+        return lambda count: config.lr * 0.5 * (1.0 + math.cos(math.pi * min(count, total) / total))
+    if config.schedule == "none":
+        return lambda count: config.lr
+    raise ValueError(f"unknown schedule {config.schedule!r}")
+
+
+class System:
+    """Model + console + mix_fn + loss, trained one step at a time in place.
+
+    ``model`` is a ``MixStyleTransferModel`` on ``device`` (None: the CUDA
+    device) and ``mix_console`` a console on the same device; ``generator``
+    draws the reference mixes (default: a CPU generator seeded 0).
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        mix_console,
+        loss,
+        config: Optional[SystemConfig] = None,
+        mix_fn: Callable = naive_random_mix,
+        generator: Optional[torch.Generator] = None,
+        device: DeviceLike = None,
+    ):
+        self.config = config if config is not None else SystemConfig()
+        if self.config.adam_mu_dtype is not None or self.config.flatten_optimizer:
+            raise NotImplementedError(
+                "adam_mu_dtype and flatten_optimizer are TPU-era memory and layout "
+                "knobs of the JAX package and are not ported (ROADMAP Queue 1, item 7)"
+            )
+        self.model = model
+        self.mix_console = mix_console
+        self.loss = loss
+        self.mix_fn = mix_fn
+        self.generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.device = device
+        self._make_optimizer()
+        self.step = 0  # train steps taken, as JAX's TrainState.step
+
+    # ------------------------------------------------------------ optimizer
+    def _make_optimizer(self) -> None:
+        """Adam after a global-norm clip, with optax's schedule, gradient
+        accumulation and non-finite skipping (system.py:198-228)."""
+        cfg = self.config
+        self.params = list(self.model.parameters())
+        self.optimizer = torch.optim.Adam(
+            self.params, lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=_ADAM_EPS
+        )
+        self.lr_at = lr_schedule(cfg)
+        self.updates = 0  # optimizer updates applied: the schedule's count
+        self.notfinite_count = 0  # non-finite gradients in a row
+        self._mini_step = 0
+        self._acc = None  # running mean of the accumulated gradients
+
+    def effect_flags(self, epoch: int) -> EffectFlags:
+        cfg = self.config
+        return EffectFlags(
+            use_track_eq=epoch >= cfg.active_eq_epoch,
+            use_track_compressor=epoch >= cfg.active_compressor_epoch,
+            use_fx_bus=epoch >= cfg.active_fx_bus_epoch,
+            use_master_bus=epoch >= cfg.active_master_bus_epoch,
+        )
+
+    # ---------------------------------------------------------- the step
+    def forward(
+        self,
+        batch: Batch,
+        flags: EffectFlags,
+        train: bool,
+        ref_params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    ):
+        """The step's forward (JAX ``System._common``): (loss, metrics,
+        outputs). Its stages run under ``torch.profiler`` ranges named
+        ``system.ref_mix``, ``system.model``, ``system.render`` and
+        ``system.loss``."""
+        cfg = self.config
+        dev = resolve_device(self.device)
+        batch = Batch(*(t.to(dev) for t in batch))
+        tracks = batch.tracks
+        middle = tracks.shape[-1] // 2
+
+        ref_param_arrays = None
+        if cfg.generate_mix:
+            with record_function("system.ref_mix"):
+                ref = self.mix_fn(
+                    tracks,
+                    self.mix_console,
+                    self.generator,
+                    use_track_input_fader=False,  # reference system.py:235
+                    use_track_eq=flags.use_track_eq,
+                    use_track_compressor=flags.use_track_compressor,
+                    use_fx_bus=flags.use_fx_bus,
+                    use_master_bus=flags.use_master_bus,
+                    use_output_fader=False,  # reference system.py:241
+                    params=ref_params,
+                )
+                ref_mix = batch_stereo_peak_normalize(ref.mix)
+            ref_mix_a = ref_mix[..., :middle]
+            ref_mix_b = ref_mix[..., middle:]
+            tracks_b = tracks[..., middle:]
+            ref_param_arrays = (ref.track_params, ref.fx_bus_params, ref.master_bus_params)
+        else:
+            ref_mix_a = ref_mix_b = batch.ref_mix
+            tracks_b = tracks
+
+        with record_function("system.model"):
+            pred_track, pred_fx, pred_master = self.model(
+                tracks_b, ref_mix_a, batch.track_padding, train=train
+            )
+        with record_function("system.render"):
+            render = self.mix_console(
+                tracks_b,
+                pred_track,
+                pred_fx,
+                pred_master,
+                use_track_input_fader=True,
+                use_track_eq=flags.use_track_eq,
+                use_track_compressor=flags.use_track_compressor,
+                use_fx_bus=flags.use_fx_bus,
+                use_master_bus=flags.use_master_bus,
+                use_output_fader=True,
+            )
+        pred_mix_b = render.mix
+        with record_function("system.loss"):
+            loss, metrics = self._losses(pred_mix_b, ref_mix_b, (pred_track, pred_fx, pred_master),
+                                         ref_param_arrays, flags)
+        metrics["ref_mix_nonfinite"] = torch.sum(~torch.isfinite(ref_mix_b))
+        metrics["pred_mix_nonfinite"] = torch.sum(~torch.isfinite(pred_mix_b))
+        outputs = {
+            "pred_mix_b": pred_mix_b,
+            "ref_mix_a": ref_mix_a,
+            "ref_mix_b": ref_mix_b,
+            "pred_params": (pred_track, pred_fx, pred_master),
+        }
+        return loss, metrics, outputs
+
+    def _losses(self, pred_mix_b, ref_mix_b, pred_params, ref_param_arrays, flags):
+        """The mix loss (a scalar or named terms) and the optional
+        parameter loss: (loss, metrics)."""
+        cfg = self.config
+        pred_track, pred_fx, pred_master = pred_params
+        loss = pred_mix_b.new_zeros(())
+        metrics: Dict[str, torch.Tensor] = {}
+        if cfg.use_mix_loss:
+            mix_loss = self.loss(pred_mix_b, ref_mix_b)
+            if isinstance(mix_loss, dict):
+                for name, val in mix_loss.items():
+                    v = torch.mean(val)
+                    loss = loss + v
+                    metrics[name] = v
+            else:
+                loss = loss + mix_loss
+        if cfg.use_param_loss and ref_param_arrays is not None:
+            tp, fp, mp = ref_param_arrays
+            p_loss = torch.mean(torch.square(pred_track - tp))
+            if flags.use_fx_bus:
+                p_loss = p_loss + torch.mean(torch.square(pred_fx - fp))
+            if flags.use_master_bus:
+                p_loss = p_loss + torch.mean(torch.square(pred_master - mp))
+            loss = loss + p_loss
+            metrics["param_loss"] = p_loss
+
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def gradients(
+        self,
+        batch: Batch,
+        flags: EffectFlags,
+        ref_params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The first half of a train step: the forward in training mode (it
+        updates the BatchNorm running statistics) and the backward, which
+        leaves every parameter's gradient in ``.grad`` (zeros for those the
+        loss does not reach, as ``jax.grad`` gives). Returns the step's
+        metrics with ``grad_norm``, the gradients' global norm."""
+        for p in self.params:
+            p.grad = None
+        loss, metrics, _ = self.forward(batch, flags, True, ref_params)
+        metrics["grad_norm"] = self.backward(loss)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def backward(self, loss: torch.Tensor) -> torch.Tensor:
+        """Backpropagate ``loss`` into ``.grad`` (zeros where it does not
+        reach, as ``jax.grad`` gives) under the range ``system.backward``;
+        returns the gradients' global norm."""
+        with record_function("system.backward"):
+            loss.backward()
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return _global_norm([p.grad for p in self.params])
+
+    @torch.no_grad()
+    @record_function("system.optimizer")
+    def apply_gradients(self, grad_norm: torch.Tensor) -> Dict[str, int]:
+        """The second half of a train step: optax's
+        ``apply_if_finite(MultiSteps(chain(clip_by_global_norm, adam)))``
+        on the gradients in ``.grad``, whose global norm is ``grad_norm``.
+        After it, ``.grad`` holds what the optimizer took."""
+        cfg = self.config
+        metrics = {}
+        grads = [p.grad for p in self.params]
+        if cfg.skip_nonfinite_updates > 0:
+            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+            self.notfinite_count = 0 if finite else self.notfinite_count + 1
+            metrics["notfinite_count"] = self.notfinite_count
+            if not finite and self.notfinite_count <= cfg.skip_nonfinite_updates:
+                return metrics
+        k = cfg.accumulate_grad_batches
+        if k > 1:
+            n = self._mini_step
+            if self._acc is None:
+                self._acc = [torch.zeros_like(g) for g in grads]
+            for a, g in zip(self._acc, grads):
+                a.mul_(n).add_(g).div_(n + 1)
+            self._mini_step = (n + 1) % k
+            if self._mini_step:
+                return metrics
+            for a, g in zip(self._acc, grads):
+                g.copy_(a)
+                a.zero_()
+            grad_norm = _global_norm(grads)
+        # clip_by_global_norm: g * min(1, c / |g|), on the card, no sync
+        torch._foreach_mul_(grads, torch.clamp(cfg.grad_clip / grad_norm, max=1.0))
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_at(self.updates)
+        self.optimizer.step()
+        self.updates += 1
+        return metrics
+
+    def train_step(
+        self,
+        batch: Batch,
+        flags: EffectFlags,
+        ref_params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """One train step in place (JAX ``make_train_step``, system.py:541):
+        parameters, BatchNorm statistics and optimizer state move on.
+        ``ref_params`` (track, fx bus, master bus), normalized, replace the
+        reference mix's random draw. Returns the metrics: loss, the two
+        non-finite counts, grad_norm (and notfinite_count when skipping)."""
+        metrics = self.gradients(batch, flags, ref_params)
+        metrics.update(self.apply_gradients(metrics["grad_norm"]))
+        self.step += 1
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(
+        self,
+        batch: Batch,
+        flags: EffectFlags,
+        ref_params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    ):
+        """One evaluation step (JAX ``make_eval_step``, system.py:602):
+        BatchNorm on its running statistics, nothing updated. Returns
+        (metrics, outputs) with the predicted and reference mixes and the
+        normalized predicted parameters."""
+        _, metrics, outputs = self.forward(batch, flags, False, ref_params)
+        return metrics, outputs
+
+
+def _global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over every element (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))

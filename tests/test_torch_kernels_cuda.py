@@ -8,7 +8,10 @@ which the card's machine does not have):
 
 Shapes are ragged on purpose: T below, at and just past one 2,048-sample
 block, and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 (both
-versions compose in float64 and round once) and 1e-5 on K2's audio.
+versions compose in float64 and round once) and 1e-5 on K2's audio. The
+backward kernels are held against their plain versions at 1e-5 of each
+output's max-abs, and at 1e-4 on the per-row sums (both add in float64, in
+another order).
 """
 
 import numpy as np
@@ -67,6 +70,96 @@ def test_compressor_kernel_matches_plain(card, rows, t, lookahead):
     torch.testing.assert_close(y, comp_fused.compressor_fused_gain_plain(*args), rtol=0, atol=1e-5)
 
 
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("t", [1, 2047, 4097, 10001])
+@pytest.mark.parametrize("rows", [1, 8, 32])
+@pytest.mark.parametrize("per_sample", [False, True], ids=["K1_alpha_row", "K4_alpha_sample"])
+def test_onepole_backward_kernel_matches_plain(card, rows, t, per_sample):
+    gen = torch.Generator().manual_seed(rows * t + per_sample)
+    a = _alpha(gen, rows, card)
+    if per_sample:
+        a = (a[:, None] * (1.0 - 0.01 * torch.rand(rows, t, generator=gen).to(card))).contiguous()
+    y = (-40.0 * torch.rand(rows, t, generator=gen)).to(card)
+    dy = torch.randn(rows, t, generator=gen).to(card)
+    counter = "launches_per_sample" if per_sample else "launches"
+    before = getattr(scan1p.onepole_core_backward, counter)
+    db, da = scan1p.onepole_core_backward(dy, a, y)
+    torch.cuda.synchronize()
+    assert getattr(scan1p.onepole_core_backward, counter) == before + 1
+    db_p, da_p = scan1p.onepole_core_backward_plain(dy, a, y)
+    assert db.shape == dy.shape and da.shape == a.shape
+    assert _rel(db, db_p) <= 1e-5
+    assert _rel(da, da_p) <= (1e-5 if per_sample else 1e-4)
+
+
+@pytest.mark.parametrize("t", [1, 2047, 4097, 10001])
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_compressor_backward_kernel_matches_plain(card, rows, t):
+    gen = torch.Generator().manual_seed(rows + 7 * t)
+    x = torch.randn(rows, t, generator=gen).to(card)
+    x = x / x.abs().amax(dim=-1, keepdim=True)
+    xd = torch.roll(x, 1024, dims=-1)
+    u = lambda lo, hi: (lo + (hi - lo) * torch.rand(rows, generator=gen)).to(card)  # noqa: E731
+    params = comp_fused._param_rows(u(-40.0, -6.0), u(1.5, 10.0), u(0.0, 12.0),
+                                    _alpha(gen, rows, card), u(0.0, 6.0)).contiguous()
+    _, env = comp_fused._forward_plain(x, xd, params, 1e-8)
+    dy = torch.randn(rows, t, generator=gen).to(card)
+    before = comp_fused.compressor_fused_backward.launches
+    got = comp_fused.compressor_fused_backward(x, xd, params, env, dy)
+    torch.cuda.synchronize()
+    assert comp_fused.compressor_fused_backward.launches == before + 1
+    want = comp_fused.compressor_fused_backward_plain(x, xd, params, env, dy)
+    for name, g, w in zip(("dx", "dx_delayed"), got, want):
+        assert _rel(g, w) <= 1e-5, name
+    for k, name in enumerate(("threshold", "1/ratio-1", "knee", "alpha", "makeup")):
+        assert _rel(got[2][k], want[2][k]) <= 1e-4, name
+
+
+def test_compressor_forward_envelope_matches_plain(card):
+    """The envelope a differentiated forward writes is the plain version's g_s."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 5000, generator=gen).to(card) * 0.3
+    params = comp_fused._param_rows(*(torch.full((8,), v, device=card) for v in
+                                      (-20.0, 4.0, 6.0, 0.999, 2.0))).contiguous()
+    out, env = comp_fused._launch(x, x, params, 1e-8, envelope=True)
+    out_p, env_p = comp_fused._forward_plain(x, x, params, 1e-8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(env, env_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+
+
+def test_autograd_runs_the_backward_kernels(card):
+    """Gradients through the compressor on the card launch the K2 backward
+    (smoother "fused") or the K1 backward ("scan"), and match the plain
+    versions' gradients on the CPU."""
+    from diffmst_torch import ops
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 2, 6000, generator=gen) * 0.3
+    p = {k: torch.full((2,), v) for k, v in dict(threshold_db=-24.0, ratio=4.0, attack_ms=10.0,
+                                                    release_ms=100.0, knee_db=6.0,
+                                                    makeup_gain_db=2.0).items()}
+    w = torch.randn(2, 2, 6000, generator=gen)
+    for smoother, counter in (("fused", comp_fused.compressor_fused_backward),
+                              ("scan", scan1p.onepole_core_backward)):
+        grads = {}
+        for dev in ("cpu", card):
+            leaves = [t.detach().to(dev).clone().requires_grad_() for t in (x, *p.values())]
+            before = counter.launches
+            y = ops.compressor(leaves[0], SR, *leaves[1:], lookahead_samples=1024, smoother=smoother)
+            (y * w.to(dev)).sum().backward()
+            launched = counter.launches - before
+            assert launched == (0 if dev == "cpu" else 1), (smoother, dev, launched)
+            # release_ms reaches no output: the attack-only smoothers ignore it
+            grads[str(dev)] = [leaf.grad.cpu() for leaf in leaves if leaf.grad is not None]
+        assert len(grads["cpu"]) == len(grads[str(card)]) == len(leaves) - 1
+        for g_card, g_cpu in zip(grads[str(card)], grads["cpu"]):
+            assert _rel(g_card, g_cpu) <= 1e-4, smoother
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     b = torch.zeros(2, 64, device=card)
     with pytest.raises(TypeError):
@@ -79,3 +172,18 @@ def test_kernels_refuse_what_they_do_not_take(card):
     p = torch.ones(2, device=card)
     with pytest.raises(ValueError):
         comp_fused.compressor_fused_gain(x, x[:, :32], p, p, p, p, p)
+    # the backward kernels
+    a = torch.full((2,), 0.9, device=card)
+    with pytest.raises(TypeError):
+        scan1p.onepole_core_backward(b.double(), a.double(), b.double())
+    with pytest.raises(ValueError):
+        scan1p.onepole_core_backward(b, a, b[:, :32].contiguous())  # y not shaped as dy
+    with pytest.raises(ValueError):
+        scan1p.onepole_core_backward(b.t().contiguous().t(), a, b)  # not contiguous
+    params = torch.ones(5, 2, device=card)
+    with pytest.raises(TypeError):
+        comp_fused.compressor_fused_backward(x, x, params, x, x.half())
+    with pytest.raises(ValueError):
+        comp_fused.compressor_fused_backward(x, x, params[:, :1].contiguous(), x, x)
+    with pytest.raises(ValueError):
+        comp_fused.compressor_fused_backward(x, x, params, x[:, :32].contiguous(), x)

@@ -5,12 +5,14 @@ and to its counterpart in ``diffmst_torch`` on the CPU (where each kernel
 wrapper runs its plain PyTorch version). The JAX Pallas kernels run in
 interpret mode, as the JAX package's own tests run them.
 
-Tolerance: max-abs <= 1e-4 on every output (BASELINE.md, "Numerical parity").
+Tolerance: max-abs <= 1e-4 on every output (BASELINE.md, "Numerical parity");
+gradients within 1e-4 of each cotangent's max-abs.
 """
 
 import ast
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,6 +106,125 @@ def test_compressor_fused_plain_matches_pallas():
     assert np.isfinite(out.numpy()).all()
     _close(out, ref)
     _close(comp_fused.compressor_fused_gain(*map(_t, args)), ref)
+
+
+def _rel_close(port, ref, rtol=1e-4, what=""):
+    """max |port - ref| <= rtol * max |ref| (the tolerance relative to the
+    cotangent's max-abs)."""
+    port = port.detach().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape, what
+    err = np.abs(port - ref).max()
+    assert err <= rtol * np.abs(ref).max(), f"{what}: {err} > {rtol} * {np.abs(ref).max()}"
+
+
+@pytest.mark.parametrize("per_sample", [False, True], ids=["K1_alpha_row", "K4_alpha_sample"])
+def test_onepole_backward_matches_jax_grad(per_sample):
+    """K1's backward (and K4's, per-sample alpha) == jax.grad of the JAX
+    smoother onepole_scan / onepole_scan_tv (Pallas, interpret), 5 x 3,001.
+    The port runs the same autograd.Function on the CPU with the plain
+    forward and backward. Tolerance: 1e-4 of each cotangent's max-abs."""
+    from diffmst_tpu.kernels.scan1p import onepole_scan, onepole_scan_tv
+
+    rng = np.random.default_rng(12)
+    rows, t = 5, 3001
+    g = rng.uniform(-40.0, 0.0, size=(rows, t)).astype(np.float32)  # gains in dB
+    w = rng.normal(size=(rows, t)).astype(np.float32)  # the output's cotangent
+    if per_sample:
+        alpha = rng.uniform(0.9, 0.9999, size=(rows, t)).astype(np.float32)
+        jfn = onepole_scan_tv
+    else:
+        alpha = _attack_alpha(rng, rows)
+        jfn = onepole_scan
+    ref = jax.grad(
+        lambda g_, a_: jnp.sum(jfn(g_, a_, 128, True) * w), argnums=(0, 1)
+    )(jnp.asarray(g), jnp.asarray(alpha))
+
+    tg, ta = _t(g).requires_grad_(), _t(alpha).requires_grad_()
+    one_minus = (1.0 - ta) if per_sample else (1.0 - ta)[:, None]
+    y = scan1p.onepole_core(one_minus * tg, ta)
+    (y * _t(w)).sum().backward()
+    _rel_close(tg.grad, ref[0], what="dg")
+    _rel_close(ta.grad, ref[1], what="dalpha")
+
+
+@pytest.mark.parametrize("lookahead", [None, 1024], ids=["x_delayed_free", "lookahead_1024"])
+def test_compressor_fused_backward_matches_jax_grad(lookahead):
+    """K2's backward == jax.grad of the JAX compressor_fused_gain (Pallas,
+    interpret; its VJP recomputes through XLA), 6 x 2,500, knee 0 clamped on
+    row 0. With x_delayed its own input all seven cotangents are compared;
+    with a lookahead x_delayed = roll(x) and dx sums both paths.
+    Tolerance: 1e-4 of each cotangent's max-abs."""
+    rng = np.random.default_rng(13)
+    rows, t = 6, 2500
+    x = (rng.normal(size=(rows, t)) * 0.3).astype(np.float32)
+    xd = (rng.normal(size=(rows, t)) * 0.3).astype(np.float32)
+    p = [
+        rng.uniform(-40.0, -5.0, rows).astype(np.float32),  # threshold
+        rng.uniform(1.0, 10.0, rows).astype(np.float32),  # ratio
+        rng.uniform(3.0, 12.0, rows).astype(np.float32),  # knee
+        _attack_alpha(rng, rows),
+        rng.uniform(0.0, 6.0, rows).astype(np.float32),  # makeup
+    ]
+    p[2][0] = 0.0  # clamped to 1e-3: its cotangent is 0
+    w = rng.normal(size=(rows, t)).astype(np.float32)
+
+    def jloss(x_, xd_, *params):
+        if lookahead is not None:
+            xd_ = jnp.roll(x_, lookahead, axis=-1)
+        return jnp.sum(jax_fused_gain(x_, xd_, *params, 512, 1e-8, True) * w)
+
+    ref = jax.jit(jax.grad(jloss, argnums=tuple(range(7))))(*map(jnp.asarray, [x, xd, *p]))
+    leaves = [_t(a).requires_grad_() for a in [x, xd, *p]]
+    tx, txd = leaves[:2]
+    if lookahead is not None:
+        txd = torch.roll(tx, lookahead, dims=-1)
+    (comp_fused.compressor_fused_gain(tx, txd, *leaves[2:]) * _t(w)).sum().backward()
+    names = ["dx", "dx_delayed", "dthreshold", "dratio", "dknee", "dalpha", "dmakeup"]
+    for name, leaf, r in zip(names, leaves, ref):
+        if lookahead is not None and name == "dx_delayed":
+            assert leaf.grad is None
+            continue
+        _rel_close(leaf.grad, r, what=name)
+    assert float(leaves[4].grad[0]) == 0.0
+
+
+def test_backward_wrappers_take_plain_version_on_cpu():
+    """The backward wrappers run their plain versions on CPU tensors and
+    count no launch; the plain versions agree with autograd through the
+    plain forwards (float64, so rounding does not hide a wrong formula)."""
+    scan1p.onepole_core_backward.launches = 0
+    scan1p.onepole_core_backward.launches_per_sample = 0
+    comp_fused.compressor_fused_backward.launches = 0
+    rng = np.random.default_rng(14)
+    rows, t = 3, 700
+    dbl = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float64))  # noqa: E731
+    for alpha in (dbl(_attack_alpha(rng, rows)), dbl(rng.uniform(0.5, 0.99, (rows, t)))):
+        b = dbl(rng.normal(size=(rows, t))).requires_grad_()
+        a = alpha.clone().requires_grad_()
+        y = scan1p.onepole_core_plain(b, a)
+        dy = dbl(rng.normal(size=(rows, t)))
+        ref = torch.autograd.grad(y, (b, a), dy)
+        db, da = scan1p.onepole_core_backward(dy, alpha, y.detach())
+        torch.testing.assert_close(db, ref[0], rtol=1e-9, atol=1e-9)
+        torch.testing.assert_close(da, ref[1], rtol=1e-9, atol=1e-9)
+
+    x = dbl(rng.normal(size=(rows, t)) * 0.3).requires_grad_()
+    xd = dbl(rng.normal(size=(rows, t)) * 0.3).requires_grad_()
+    params = torch.stack([
+        dbl(rng.uniform(-30.0, -10.0, rows)), dbl(rng.uniform(-0.9, -0.1, rows)),
+        dbl(rng.uniform(3.0, 12.0, rows)), dbl(_attack_alpha(rng, rows)),
+        dbl(rng.uniform(0.0, 6.0, rows)),
+    ]).requires_grad_()
+    out, env = comp_fused._forward_plain(x, xd, params, 1e-8)
+    dy = dbl(rng.normal(size=(rows, t)))
+    ref = torch.autograd.grad(out, (x, xd, params), dy)
+    got = comp_fused.compressor_fused_backward(x.detach(), xd.detach(), params.detach(), env.detach(), dy)
+    for g_, r in zip(got, ref):
+        torch.testing.assert_close(g_, r, rtol=1e-9, atol=1e-9)
+    assert scan1p.onepole_core_backward.launches == 0
+    assert scan1p.onepole_core_backward.launches_per_sample == 0
+    assert comp_fused.compressor_fused_backward.launches == 0
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu():
