@@ -7,12 +7,14 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
 ``build/diffmst_torch_kernels/`` at first use. Phases:
 
   1. device: the card's name and power limit;
-  2. build: every kernel, timed;
-  3. kernels: K1 (one-pole scan) and K2 (fused compressor) at the serving
-     shapes, and their backward kernels (K1's with a per-row and, as K4's,
-     a per-sample alpha; K2's, with the envelope that K2's forward writes
-     for it) at the training shapes, against their plain PyTorch versions,
-     with times and bounds;
+  2. build: every kernel, timed, with ptxas's registers and spills;
+  3. kernels: K1 (one-pole scan), K2 (fused compressor), K3 (release
+     min-scan) and K5 (biquad cascade) at the serving shapes, and their
+     backward kernels (K1's with a per-row and, as K4's, a per-sample alpha;
+     K2's, with the envelope that K2's forward writes for it) at the
+     training shapes, against their plain PyTorch versions, with times and
+     bounds; K5 also against scipy.signal.sosfilt in float64 at a 20 Hz
+     high-Q low shelf;
   4. reference: a small song rendered on the card and on the CPU (the
      kernels' plain versions) with the same weights;
   5. serving: three 60 s, 8-track requests through ``run_diffmst`` with the
@@ -22,15 +24,24 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      against the K2 render;
   7. profile: request 2 once more under ``torch.profiler``, the card's busy
      share and its largest kernels;
-  8. training: the Method-1 step (``diffmst_torch.train.System``) at the
-     reference recipe, batch 4 x 8 tracks x 262,144 samples: three steps
-     with the compressor "auto" (K2 forward and backward), then one with
+  8. streaming: three requests with ``render_mode="streaming"`` and the
+     causal console (``comp_smoother="decoupled"``, ``eq_method="scan"``:
+     K3, K1 and K5), the seams of request 1 held against one render of the
+     whole song (and against the "ola" render's), and a
+     ``return_device=True`` call;
+  9. training: the Method-1 step (``diffmst_torch.train.System``) at the
+     reference recipe, batch 4 x 8 tracks x 262,144 samples: one step with
      "scan" (K1 forward and backward), whose gradients are held against
-     the K2 path's on the same batch and weights; steps/s, audio seconds
-     per second, peak memory and launches per step;
-  9. training profile: one more step under ``torch.profiler``, the card's
+     the K2 path's on the same batch and seeded weights, then three steps
+     with the compressor "auto" (K2 forward and backward); steps/s, audio
+     seconds per second, peak memory and launches per step;
+ 10. training profile: one more step under ``torch.profiler``, the card's
      busy share, the time of the model, the console and the loss forward
-     and backward, and the largest kernels.
+     and backward, and the largest kernels;
+ 11. training-causal: two Method-1 steps with the causal console (K3, K1 and
+     K5 forward and backward), and the console's gradients at the step's
+     predicted parameters through the kernels against the same gradients
+     through the plain versions on the card.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -39,6 +50,7 @@ matrix products and convolutions run without TF32.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -55,10 +67,11 @@ SONG_S = 60.0
 N_TRACKS = 8
 REPEATS = 20
 
-# Peak device-memory rates (bytes/s) and float32 rate outside the tensor
-# cores (FLOP/s) of an H100, by form factor (NVIDIA data sheets).
+# Peak device-memory rates (bytes/s), and float32 and float64 rates outside
+# the tensor cores (FLOP/s), of an H100, by form factor (NVIDIA data sheets).
 HBM_RATE = {"sxm": 3.35e12, "pcie": 2.0e12}
 FP32_RATE = {"sxm": 67e12, "pcie": 51e12}
+FP64_RATE = {"sxm": 34e12, "pcie": 26e12}
 
 
 def line(*parts) -> None:
@@ -164,8 +177,9 @@ def _static_gain_db(x, thr, ratio, knee):
 
 
 def phase_kernels(form: str):
-    """K1 and K2 against their plain versions at the serving shapes."""
-    from diffmst_torch.kernels import comp_fused, scan1p
+    """K1, K2, K3 and K5 against their plain versions at the serving shapes,
+    and their backward kernels at the training shapes."""
+    from diffmst_torch.kernels import comp_fused, iir_fused, scan1p
     from diffmst_torch.ops.compressor import _ballistics_coeff
 
     dev = torch.device("cuda")
@@ -188,11 +202,15 @@ def phase_kernels(form: str):
         from a float64 run of the plain version."""
         return [(t.double() - y64).abs().max().item() for t in (y, y_plain)]
 
-    def record(name, shape, err, err64, fn, plain_fn, nbytes, flops, launches, reported, rel=None):
+    def record(name, shape, err, err64, fn, plain_fn, nbytes, flops, launches, reported, rel=None,
+               flop_rate=FP32_RATE):
+        """Times a kernel's wrapper and its plain version; the bound is the
+        larger of the bytes over the memory rate and the operations over
+        ``flop_rate`` (float32, or float64 where the work is float64)."""
         ms, plain_ms = time_ms(fn, flush), time_ms(plain_fn, flush)
         call_ms = time_ms(fn, flush, hide_host=False)
-        bound_ms = max(nbytes / rate, flops / FP32_RATE[form]) * 1e3
-        by = "bytes" if nbytes / rate >= flops / FP32_RATE[form] else "operations"
+        bound_ms = max(nbytes / rate, flops / flop_rate[form]) * 1e3
+        by = "bytes" if nbytes / rate >= flops / flop_rate[form] else "operations"
         if err64 is not None:
             line(f"[kernels] {name} {shape}: max_abs_err {err:.3g}"
                  f" (vs float64: kernel {err64[0]:.3g}, plain {err64[1]:.3g})")
@@ -339,7 +357,131 @@ def phase_kernels(form: str):
                lambda: bwd(x, xd, p, env, dy),
                lambda: comp_fused.compressor_fused_backward_plain(x, xd, p, env_p, dy),
                n * 24 + rows * 40, 28 * n, bwd.launches, rows == 32, rel)
+
+    # K3: the release stage on the detector's and the knee's gains of
+    # synthetic audio, releases of 10-250 ms
+    def release(rows, t):
+        thr, ratio, _, knee, _ = params(rows)
+        g = _static_gain_db(audio(rows)[:, :t], thr, ratio, knee).contiguous()
+        ms = 10.0 + 240.0 * torch.rand(rows, device=dev, generator=gen)
+        return g, _ballistics_coeff(ms, SR).contiguous()
+
+    for rows in (32, 8):
+        g, a = release(rows, WINDOW)
+        scan1p.release_min_scan.launches = 0
+        y = scan1p.release_min_scan(g, a)
+        torch.cuda.synchronize()
+        y_plain = scan1p.release_min_scan_plain(g, a)
+        err = (y - y_plain).abs().max().item()
+        err64 = vs64(y, y_plain, scan1p.release_min_scan_plain(g.double(), a.double()))
+        require(bool(torch.isfinite(y).all()), "K3 output finite")
+        require(err <= 1e-4, f"K3 {rows}x{WINDOW} agrees with its plain version in dB ({err})")
+        n = rows * WINDOW
+        # read g, write y; per sample (1 - a) g, a y + d and the min: 5 operations
+        record("release_min_scan", f"{rows}x{WINDOW}", err, err64,
+               lambda: scan1p.release_min_scan(g, a), lambda: scan1p.release_min_scan_plain(g, a),
+               n * 8 + rows * 4, 5 * n, scan1p.release_min_scan.launches, rows == 32)
+
+    # K3's backward at the training shapes, on its own forward's output
+    bwd = scan1p.release_min_scan_backward
+    for rows in (32, 8):
+        g, a = release(rows, HALF)
+        y = scan1p.release_min_scan(g, a)
+        dy = torch.randn(rows, HALF, device=dev, generator=gen)
+        bwd.launches = 0
+        dg, da = bwd(dy, g, a, y)
+        torch.cuda.synchronize()
+        dg_p, da_p = scan1p.release_min_scan_backward_plain(dy, g, a, y)
+        rel = {"dg": rel_err(dg, dg_p), "dalpha": rel_err(da, da_p)}
+        require(bool(torch.isfinite(dg).all() and torch.isfinite(da).all()), "K3 backward finite")
+        require(bwd.launches == 1, f"one K3 backward launch ({bwd.launches})")
+        require(rel["dg"] <= 1e-5, f"K3 backward dg agrees with its plain version ({rel['dg']})")
+        require(rel["dalpha"] <= 1e-4, f"K3 backward dalpha agrees with its plain version ({rel['dalpha']})")
+        n = rows * HALF
+        # read dy, y, g, write dg; alpha and its sum 8 bytes a row. Per
+        # sample the two branch tests, the scan (2), dg and the sum (3)
+        record("release_min_scan_backward", f"{rows}x{HALF}", abs_err(((dg, dg_p), (da, da_p))), None,
+               lambda: bwd(dy, g, a, y), lambda: scan1p.release_min_scan_backward_plain(dy, g, a, y),
+               n * 16 + rows * 8, 7 * n, bwd.launches, rows == 32, rel)
+
+    # K5: the console's six-band EQ, parameters drawn over its ranges
+    for rows in (32, 8):
+        b, a = eq_sections(rows, gen)
+        x = audio(rows).contiguous()
+        iir_fused.sosfilt.launches = 0
+        y = iir_fused.sosfilt(x, b, a)
+        torch.cuda.synchronize()
+        y_plain = iir_fused.sosfilt_plain(x, b, a)
+        rel = {"y": rel_err(y, y_plain)}
+        require(bool(torch.isfinite(y).all()), "K5 output finite")
+        require(rel["y"] <= 1e-5, f"K5 {rows}x{WINDOW} agrees with its plain version ({rel})")
+        n = rows * WINDOW
+        # read x, write y, 30 coefficients a row; per sample and section the
+        # TDF-II recurrence and output in float64: 9 operations, 54 in all
+        record("sosfilt", f"{rows}x{WINDOW}", (y - y_plain).abs().max().item(), None,
+               lambda: iir_fused.sosfilt(x, b, a), lambda: iir_fused.sosfilt_plain(x, b, a),
+               n * 8 + rows * 120, 54 * n, iir_fused.sosfilt.launches, rows == 32, rel,
+               flop_rate=FP64_RATE)
+
+    # K5 at the console's lowest, sharpest low shelf, against scipy in float64
+    import scipy.signal
+
+    b, a = eq_sections(4, gen, low_shelf_hz=20.0)
+    x = audio(4).contiguous()
+    y = iir_fused.sosfilt(x, b, a).double().cpu().numpy()
+    sos = torch.cat([b, a], dim=-1).double().cpu().numpy()
+    x64 = x.double().cpu().numpy()
+    ref = np.stack([scipy.signal.sosfilt(sos[i], x64[i]) for i in range(4)])
+    radius = max(float(np.abs(np.roots(sos[i, 0, 3:])).max()) for i in range(4))
+    err = float(np.abs(y - ref).max() / np.abs(ref).max())
+    line(f"[kernels] sosfilt 4x{WINDOW}, low shelf at 20 Hz, Q 5, +12 dB (pole radius {radius:.6f}):"
+         f" {err:.3g} of the peak off scipy.signal.sosfilt in float64")
+    require(err <= 1e-4, f"K5 agrees with scipy at a 20 Hz shelf ({err})")
+    stats["sosfilt"]["scipy_rel_err"] = err
+
+    # K5's backward at the training shapes: the track EQ's 32 rows
+    bwd = iir_fused.sosfilt_backward
+    b, a = eq_sections(32, gen)
+    coef = iir_fused._coef_rows(b, a)
+    x = audio(32)[:, :HALF].contiguous()
+    y, stages = iir_fused._launch(x, coef)
+    dy = torch.randn(32, HALF, device=dev, generator=gen)
+    bwd.launches = 0
+    dx, dcoef = bwd(x, stages, y, coef, dy)
+    torch.cuda.synchronize()
+    dx_p, dcoef_p = iir_fused.sosfilt_backward_plain(x, stages, y, coef, dy)
+    rel = {"dx": rel_err(dx, dx_p), "dcoef": max(rel_err(dcoef[s, k], dcoef_p[s, k])
+                                                for s in range(6) for k in range(5))}
+    require(bool(torch.isfinite(dx).all() and torch.isfinite(dcoef).all()), "K5 backward finite")
+    require(bwd.launches == 1, f"one K5 backward launch ({bwd.launches})")
+    require(rel["dx"] <= 1e-5, f"K5 backward dx agrees with its plain version ({rel['dx']})")
+    require(rel["dcoef"] <= 1e-4, f"K5 backward's 30 sums a row agree with their plain versions ({rel})")
+    n = 32 * HALF
+    # read x, the five stages, y and dy, write dx (36 bytes a sample), 30
+    # coefficients and 30 sums a row; per sample and section the reversed
+    # filter (9), w's recurrence (4) and five sums (10) in float64
+    record("sosfilt_backward", f"32x{HALF}", abs_err(((dx, dx_p),)), None,
+           lambda: bwd(x, stages, y, coef, dy),
+           lambda: iir_fused.sosfilt_backward_plain(x, stages, y, coef, dy),
+           n * 36 + 32 * 240, 6 * 23 * n, bwd.launches, True, rel, flop_rate=FP64_RATE)
     return stats
+
+
+def eq_sections(rows: int, gen: torch.Generator, low_shelf_hz: float | None = None):
+    """(rows, 6, 3) sections of the console's EQ, parameters drawn over its
+    ranges on the card; ``low_shelf_hz`` pins every low shelf there at the
+    top Q (5) and +12 dB."""
+    from diffmst_torch.console.ranges import advanced_param_ranges
+    from diffmst_torch.ops.eq import _eq_sos
+
+    dev = gen.device
+    p = {k: lo + (hi - lo) * torch.rand(rows, device=dev, generator=gen)
+         for k, (lo, hi) in advanced_param_ranges(SR)["parametric_eq"].items()}
+    if low_shelf_hz is not None:
+        for k, v in (("cutoff_freq", low_shelf_hz), ("q_factor", 5.0), ("gain_db", 12.0)):
+            p[f"low_shelf_{k}"] = torch.full((rows,), v, device=dev)
+    b, a = _eq_sos(SR, **p)
+    return b.contiguous(), a.contiguous()
 
 
 def phase_reference():
@@ -445,6 +587,81 @@ def phase_profile(model):
         line(f"[profile] {e.self_device_time_total / 1e3:8.2f} ms {e.count:5d}x {e.key[:70]}")
 
 
+# --------------------------------------------------------------- streaming
+
+CAUSAL = dict(comp_smoother="decoupled", eq_method="scan")
+
+
+def phase_streaming(model):
+    """Three requests with the seam-free overlap-save render and the causal
+    console; the seams of request 1 against one render of the whole song."""
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.utils import inference
+    from diffmst_torch.utils.inference import run_diffmst
+
+    console = AdvancedMixConsole(SR, **CAUSAL)
+    seen = {}
+
+    def model_apply(t, r):  # the model, its normalized outputs kept for the seam check
+        seen["params"] = model(t, r)
+        return seen["params"]
+
+    n = int(SONG_S * SR)
+    walls, launches, first = [], [], None
+    for i, (seed, fmt) in enumerate(((1, "float32"), (2, "float32"), (3, "pcm16"))):
+        tracks, ref = synth_song(seed, N_TRACKS, SONG_S, quiet_track=N_TRACKS - 1)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        mix, td, _, _ = run_diffmst(tracks, ref, model_apply, console, render_mode="streaming",
+                                    output_format=fmt)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        launches.append(counts)
+        mf = mix.astype(np.float32) / (32767.0 if fmt == "pcm16" else 1.0)
+        finite = bool(np.isfinite(mf).all())
+        rms, peak = float(np.sqrt(np.mean(mf**2))), float(np.abs(mf).max())
+        line(f"[streaming] request {i + 1} ({fmt}, {'cold' if i == 0 else 'warm'}): {walls[-1]:.3f} s,"
+             f" {SONG_S / walls[-1]:.1f}x realtime, launches K3 {counts['K3']}, K1 {counts['K1']},"
+             f" K5 {counts['K5']} (K2 {counts['K2']}), finite {finite}, rms {rms:.4g}, peak {peak:.4g}")
+        require(mix.shape == (1, 2, n), f"streaming request {i + 1} mix shape {mix.shape}")
+        require(finite and rms > 0.0, f"streaming request {i + 1} mix finite and not silent")
+        require(counts["K3"] == counts["K1"] == counts["K5"] == 12 and counts["K2"] == 0,
+                f"streaming request {i + 1}: 12 launches each of K3, K1 and K5, none of K2 ({counts})")
+        require(td["compressor"]["ratio"].shape == (1, N_TRACKS - 1), "the quiet track was gated")
+        if i == 0:
+            first = (tracks, ref, mix, seen["params"])
+
+    # Seams: request 1 against one render of the whole song with the same
+    # predicted parameters, and the "ola" render's distance from it.
+    tracks, ref, mix, (tp, fp, mp) = first
+    keep, gains, _ = inference._gate(tracks[..., :WINDOW], SR)
+    tp_full = torch.zeros(1, N_TRACKS, tp.shape[-1], device="cuda")
+    tp_full[0, keep] = tp[0]
+    with torch.no_grad():
+        stems = torch.from_numpy(tracks).cuda() * torch.from_numpy(gains).cuda()[None, :, None]
+        one = console(stems, tp_full, fp, mp).mix.cpu().numpy()
+    ola, *_ = run_diffmst(tracks, ref, model, console, render_mode="ola")
+    block = WINDOW // 2
+    peak = float(np.abs(one).max())
+    err_stream = float(np.abs(mix - one)[..., block:].max()) / peak
+    err_ola = float(np.abs(ola - one)[..., block:].max()) / peak
+    line(f"[streaming] seams of request 1 past its first block, against one render of the whole song:"
+         f" streaming {err_stream:.3g} of the peak, ola {err_ola:.3g}")
+    require(err_stream <= 1e-3, f"the streaming render agrees with the one-shot render ({err_stream})")
+    require(err_stream <= 0.1 * err_ola, f"streaming is 10x closer than ola ({err_stream} vs {err_ola})")
+
+    on_dev, *_ = run_diffmst(tracks, ref, model, console, render_mode="streaming", return_device=True)
+    torch.cuda.synchronize()
+    dev_err = float(np.abs(on_dev.cpu().numpy() - mix).max())
+    line(f"[streaming] return_device: a {on_dev.dtype} tensor of shape {tuple(on_dev.shape)} on"
+         f" {on_dev.device}, {dev_err:.3g} from request 1's host mix")
+    require(on_dev.is_cuda and on_dev.shape == mix.shape, "return_device gives the mix on the card")
+    require(dev_err <= 1e-6 * peak, f"return_device's mix equals the host mix ({dev_err})")
+    return walls, launches
+
+
 # ---------------------------------------------------------------- training
 
 # The reference recipe: configs/models/naive.yaml (the model at full width,
@@ -480,10 +697,12 @@ def synth_batch(seed: int):
 
 
 def _counters():
-    from diffmst_torch.kernels import comp_fused, scan1p
+    from diffmst_torch.kernels import comp_fused, iir_fused, scan1p
 
     return {"K1": scan1p.onepole_core, "K1-bwd": scan1p.onepole_core_backward,
-            "K2": comp_fused.compressor_fused_gain, "K2-bwd": comp_fused.compressor_fused_backward}
+            "K2": comp_fused.compressor_fused_gain, "K2-bwd": comp_fused.compressor_fused_backward,
+            "K3": scan1p.release_min_scan, "K3-bwd": scan1p.release_min_scan_backward,
+            "K5": iir_fused.sosfilt, "K5-bwd": iir_fused.sosfilt_backward}
 
 
 def reset_counts() -> None:
@@ -499,7 +718,8 @@ def read_counts() -> dict:
 
 
 def phase_training():
-    """The Method-1 step at the reference recipe: three K2 steps, then a K1 step."""
+    """The Method-1 step at the reference recipe: a K1 step held against the
+    K2 path at the seeded weights, then three timed K2 steps."""
     from diffmst_torch.console import AdvancedMixConsole
     from diffmst_torch.losses import MultiResolutionSTFTLoss
     from diffmst_torch.mixing import naive_random_mix
@@ -518,29 +738,13 @@ def phase_training():
     line(f"[training] model {n_params / 1e6:.1f} M params, batch {TRAIN_BS} x {TRAIN_TRACKS} x {WINDOW},"
          f" flags {flags._asdict()}, lr {system.config.lr}, schedule {system.config.schedule}")
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    walls, all_counts = [], []
-    for step in range(TRAIN_STEPS):
-        reset_counts()
-        t0 = time.perf_counter()
-        m = system.train_step(batch, flags)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        counts = read_counts()
-        all_counts.append(counts)
-        loss, gn = float(m["loss"]), float(m["grad_norm"])
-        line(f"[training] step {step + 1} (auto = K2): {walls[-1]:.3f} s, loss {loss:.5f},"
-             f" grad_norm {gn:.5g}, launches {counts}")
-        require(np.isfinite(loss) and np.isfinite(gn), f"step {step + 1} loss and grad_norm finite")
-        require(int(m["pred_mix_nonfinite"]) == 0 and int(m["ref_mix_nonfinite"]) == 0,
-                f"step {step + 1} mixes finite")
-        require(counts["K2"] == 4 and counts["K2-bwd"] == 2 and counts["K1"] == counts["K1-bwd"] == 0,
-                f"step {step + 1}: 4 K2 forward and 2 K2 backward launches, no K1 ({counts})")
-    peak = torch.cuda.max_memory_allocated()
 
     # The K1 step against the K2 path at the same weights, batch, reference
-    # mix and BatchNorm statistics, with deterministic cuDNN: two K2 passes
+    # mix and BatchNorm statistics, with deterministic cuDNN, before the
+    # timed steps: at the seeded weights the comparison is the same in every
+    # run (after steps whose cuDNN backward is not deterministic it varied
+    # from run to run, once to 4.4e-2 of the cotangents' norm: PERF.md,
+    # Findings). Two K2 passes
     # (the second shows how far the K2 path's gradients move between runs),
     # then the K1 step. All three render the reference through K1, so that
     # the passes differ in the predicted render alone: the MRSTFT loss's L1
@@ -608,7 +812,7 @@ def phase_training():
     cot_errs = {k: cotangent_err(k) for k in ("track", "master")}
     cot_rel = max(e[0] for e in cot_errs.values())
     loss1, loss2 = float(m1["loss"]), float(m2["loss"])
-    line(f"[training] step {TRAIN_STEPS + 1} (scan = K1): {k1_wall:.3f} s, loss {loss1:.5f},"
+    line(f"[training] the K1 step (scan), at the seeded weights: {k1_wall:.3f} s, loss {loss1:.5f},"
          f" grad_norm {float(m1['grad_norm']):.5g}, launches {k1_counts}")
     line(f"[training] K1 vs K2 on the same batch and weights: loss {loss1:.7f} vs {loss2:.7f};"
          f" the console's cotangents at the predicted parameters differ by {cot_rel:.3g} of their"
@@ -631,6 +835,28 @@ def phase_training():
     require(abs(float(m1["grad_norm"]) / float(m2["grad_norm"]) - 1.0) <= 1e-4, "K1 and K2 grad_norm agree")
     require(cot_rel <= 2e-2, f"K1 and K2 console cotangents agree ({cot_rel})")
     require(global_rel <= 1e-3, f"K1 and K2 gradients agree ({global_rel}; K2 vs K2 {spread})")
+    del g1, g2, g2b, cot1, cot2  # 2.3 GB of gradient copies, out of the timed steps' peak memory
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, all_counts = [], []
+    for step in range(TRAIN_STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        m = system.train_step(batch, flags)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        all_counts.append(counts)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        line(f"[training] step {step + 1} (auto = K2): {walls[-1]:.3f} s, loss {loss:.5f},"
+             f" grad_norm {gn:.5g}, launches {counts}")
+        require(np.isfinite(loss) and np.isfinite(gn), f"step {step + 1} loss and grad_norm finite")
+        require(int(m["pred_mix_nonfinite"]) == 0 and int(m["ref_mix_nonfinite"]) == 0,
+                f"step {step + 1} mixes finite")
+        require(counts["K2"] == 4 and counts["K2-bwd"] == 2 and counts["K1"] == counts["K1-bwd"] == 0,
+                f"step {step + 1}: 4 K2 forward and 2 K2 backward launches, no K1 ({counts})")
+    peak = torch.cuda.max_memory_allocated()
 
     per_step = sum(walls[1:]) / (len(walls) - 1)
     audio_s = TRAIN_BS * WINDOW / SR
@@ -687,6 +913,103 @@ def phase_train_profile(system, batch, flags):
         line(f"[train-profile] {e.self_device_time_total / 1e3:8.2f} ms {e.count:5d}x {e.key[:70]}")
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """The console's K1, K3 and K5 swapped for their plain versions, forward
+    and backward, on the card: the console's modules call these names."""
+    import importlib
+
+    from diffmst_torch.kernels import iir_fused, scan1p
+
+    comp_ops = importlib.import_module("diffmst_torch.ops.compressor")
+    saved = (comp_ops.onepole_core, comp_ops.release_min_scan, iir_fused.sosfilt)
+    comp_ops.onepole_core = lambda b, a: scan1p._Onepole.apply(b, a, True)
+    comp_ops.release_min_scan = lambda g, a: scan1p._MinScan.apply(g, a, True)
+    iir_fused.sosfilt = lambda x, b, a: iir_fused._Sosfilt.apply(x, iir_fused._coef_rows(b, a), True)
+    try:
+        yield
+    finally:
+        comp_ops.onepole_core, comp_ops.release_min_scan, iir_fused.sosfilt = saved
+
+
+def phase_training_causal():
+    """Two Method-1 steps at the reference recipe with the causal console,
+    then the console's gradients at the step's predicted parameters through
+    the kernels against the same through the plain versions on the card."""
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.losses import MultiResolutionSTFTLoss
+    from diffmst_torch.models import MixStyleTransferModel
+    from diffmst_torch.train import System, SystemConfig
+
+    model = MixStyleTransferModel.build(generator=torch.Generator().manual_seed(0))
+    console = AdvancedMixConsole(SR, **CONSOLE_RANGES, **CAUSAL)
+    system = System(model, console, MultiResolutionSTFTLoss(**MRSTFT), SystemConfig(),
+                    generator=torch.Generator().manual_seed(1))
+    batch = synth_batch(12)
+    batch = type(batch)(*(t.cuda() for t in batch))
+    flags = system.effect_flags(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, all_counts = [], []
+    for step in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        m = system.train_step(batch, flags)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        all_counts.append(counts)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        line(f"[training-causal] step {step + 1}: {walls[-1]:.3f} s, loss {loss:.5f}, grad_norm {gn:.5g},"
+             f" launches {counts}")
+        require(np.isfinite(loss) and np.isfinite(gn), f"causal step {step + 1} loss and grad_norm finite")
+        require(int(m["pred_mix_nonfinite"]) == 0 and int(m["ref_mix_nonfinite"]) == 0,
+                f"causal step {step + 1} mixes finite")
+        require(all(counts[k] == 4 for k in ("K3", "K1", "K5"))
+                and all(counts[k] == 2 for k in ("K3-bwd", "K1-bwd", "K5-bwd"))
+                and counts["K2"] == counts["K2-bwd"] == 0,
+                f"causal step {step + 1}: K3, K1, K5 4 launches each forward, 2 backward ({counts})")
+    peak = torch.cuda.max_memory_allocated()
+    audio_s = TRAIN_BS * WINDOW / SR
+    line(f"[training-causal] step 2: {1.0 / walls[1]:.3f} steps/s ({walls[1]:.3f} s,"
+         f" {audio_s / walls[1]:.1f} s of audio a second); step 1 {walls[0]:.3f} s;"
+         f" peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+
+    # The console's gradients at the predicted parameters, one fixed
+    # cotangent on the mix (no loss whose L1 signs could flip).
+    with torch.no_grad():
+        _, _, out = system.forward(batch, flags, True)
+    tp, fp, mp = (t.detach() for t in out["pred_params"])
+    tracks_b = batch.tracks[..., HALF:]
+    w = torch.randn(TRAIN_BS, 2, HALF, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+
+    def console_grads():
+        leaves = [t.clone().requires_grad_() for t in (tracks_b, tp, mp)]
+        mix = console(leaves[0], leaves[1], fp, leaves[2]).mix
+        (mix * w).sum().backward()
+        torch.cuda.synchronize()
+        return [leaf.grad for leaf in leaves]
+
+    reset_counts()
+    got = console_grads()
+    kernel_counts = read_counts()
+    with plain_versions():
+        reset_counts()
+        want = console_grads()
+        plain_counts = read_counts()
+    rel = {name: float((g.double() - p.double()).norm() / p.double().norm())
+           for name, g, p in zip(("tracks", "track_params", "master_params"), got, want)}
+    line(f"[training-causal] console gradients at the predicted parameters, {TRAIN_BS}x{TRAIN_TRACKS}x{HALF},"
+         f" kernels vs plain versions on the card, of each tensor's norm: "
+         + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+         + f"; launches {kernel_counts} (plain pass {plain_counts})")
+    require(all(kernel_counts[k] > 0 for k in ("K3-bwd", "K1-bwd", "K5-bwd")), "the kernels' gradients ran")
+    require(not any(plain_counts.values()), f"the plain pass launched no kernel ({plain_counts})")
+    require(max(rel.values()) <= 1e-4, f"the console's gradients agree with the plain versions' ({rel})")
+    launches = {k: sum(c[k] for c in all_counts) for k in all_counts[0]}
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, k, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
@@ -709,36 +1032,56 @@ def main() -> int:
     model, mix_k2, k2_launches, walls = phase_serving()
     k1_launches = phase_k1_path(model, mix_k2)
     phase_profile(model)
+    stream_walls, stream = phase_streaming(model)
     del model
     torch.cuda.empty_cache()
     system, batch, flags, train = phase_training()
     phase_train_profile(system, batch, flags)
+    del system, batch
+    torch.cuda.empty_cache()
+    causal = phase_training_causal()
 
-    scan_cu, comp_cu = ("diffmst_torch/kernels/csrc/scan1p.cu",
-                        "diffmst_torch/kernels/csrc/comp_fused.cu")
-    # launches: the serving requests (K1 in its one "scan" render) plus the
-    # four training steps; K4's backward is on no path (no smoother uses it)
+    scan_cu, comp_cu, iir_cu = ("diffmst_torch/kernels/csrc/scan1p.cu",
+                                "diffmst_torch/kernels/csrc/comp_fused.cu",
+                                "diffmst_torch/kernels/csrc/iir_fused.cu")
+    serving = {k: sum(c[k] for c in stream) for k in stream[0]}
+    serving["K1"] += k1_launches
+    serving["K2"] += k2_launches
+    training = {k: train.get(k, 0) + causal[k] for k in causal}
+
+    def entry(key, name, source, replaces, **extra):
+        """Launches: the serving requests (K2's three, K1's "scan" render,
+        the three streaming ones) plus the training steps (four, then two
+        causal ones)."""
+        return kernel_entry(name, source, replaces, serving[key] + training[key], stats[name],
+                            launches_serving=serving[key], launches_training=training[key],
+                            on_path=True, **extra)
+
     kernels = [
-        kernel_entry("onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111",
-                     k1_launches + train["K1"], stats["onepole_core"],
-                     launches_serving=k1_launches, launches_training=train["K1"]),
-        kernel_entry("compressor_fused_gain", comp_cu, "diffmst_tpu/kernels/comp_fused.py:98",
-                     k2_launches + train["K2"], stats["compressor_fused_gain"],
-                     launches_serving=k2_launches, launches_training=train["K2"]),
-        kernel_entry("onepole_core_backward", scan_cu,
-                     "diffmst_tpu/kernels/scan1p.py:145 (onepole_scan VJP, :142-150)",
-                     train["K1-bwd"], stats["onepole_core_backward"]),
+        entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),
+        entry("K2", "compressor_fused_gain", comp_cu, "diffmst_tpu/kernels/comp_fused.py:98"),
+        entry("K1-bwd", "onepole_core_backward", scan_cu,
+              "diffmst_tpu/kernels/scan1p.py:145 (onepole_scan VJP, :142-150)"),
+        # K4's backward is on no path (no smoother uses it)
         kernel_entry("onepole_core_backward_per_sample", scan_cu,
                      "diffmst_tpu/kernels/scan1p.py:183 (onepole_scan_tv VJP, :176-187)",
                      train["K4-bwd"], stats["onepole_core_backward_per_sample"], on_path=False),
-        kernel_entry("compressor_fused_backward", comp_cu,
-                     "diffmst_tpu/kernels/comp_fused.py:167 (compressor_fused_gain VJP, :167-176)",
-                     train["K2-bwd"], stats["compressor_fused_backward"]),
+        entry("K2-bwd", "compressor_fused_backward", comp_cu,
+              "diffmst_tpu/kernels/comp_fused.py:167 (compressor_fused_gain VJP, :167-176)"),
+        entry("K3", "release_min_scan", scan_cu,
+              "diffmst_tpu/kernels/scan1p.py:253 (minscan_core:236, release_min_scan:270)"),
+        entry("K3-bwd", "release_min_scan_backward", scan_cu,
+              "diffmst_tpu/kernels/scan1p.py:294 (release_min_scan VJP, :294-297)"),
+        entry("K5", "sosfilt", iir_cu,
+              "diffmst_tpu/kernels/iir_fused.py:128 (_core:120, sosfilt_pallas:144)"),
+        entry("K5-bwd", "sosfilt_backward", iir_cu,
+              "diffmst_tpu/kernels/iir_fused.py:167 (sosfilt_pallas VJP, :167-170)"),
     ]
     for k in kernels:
-        require(k["launches"] > 0 or not k.get("on_path", True), f"{k['name']} launched on its path")
+        require(k["launches"] > 0 or not k["on_path"], f"{k['name']} launched on its path")
     line(f"[serving] realtime factors {', '.join(f'{SONG_S / w:.1f}x' for w in walls)}"
-         f" for {SONG_S:.0f} s, {N_TRACKS}-track songs")
+         f" for {SONG_S:.0f} s, {N_TRACKS}-track songs; streaming with the causal console"
+         f" {', '.join(f'{SONG_S / w:.1f}x' for w in stream_walls)}")
     line(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

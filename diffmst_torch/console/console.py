@@ -121,9 +121,13 @@ class AdvancedMixConsole:
     track_comp_lookahead: int = 2048
     master_comp_lookahead: int = 1024
     # Compressor smoother (ops/compressor.py): "auto" (= "fused", kernel K2),
-    # "scan" (kernel K1) or "fsm" (the reference's circular FFT smoother).
+    # "scan" (kernel K1), "fsm" (the reference's circular FFT smoother), or
+    # "decoupled" / "decoupled_pallas" (attack and release: K3, then K1).
     comp_smoother: str = "auto"
-    # EQ method (ops/eq.py): only the reference's frequency sampling, "fs".
+    # EQ method (ops/eq.py): the reference's frequency sampling "fs" (with
+    # the input fader folded into the response), or the causal cascade
+    # "scan" / "scan_pallas" (kernel K5), which with "decoupled" makes the
+    # causal console that run_diffmst(render_mode="streaming") renders with.
     eq_method: str = "fs"
     device: Optional[str] = None  # None: the CUDA device
 
@@ -191,7 +195,7 @@ class AdvancedMixConsole:
                 x = x * fader_lin[:, None, None]
         if use_track_eq:
             eq = {k: flat(v) for k, v in track_param_dict["parametric_eq"].items()}
-            # the fader folds into the EQ's sampled frequency response
+            # the fader folds into the EQ ("fs": its sampled response)
             x = ops.parametric_eq(x, sr, linear_gain=fader_lin, method=self.eq_method, **eq)
         if use_track_compressor:
             comp = {k: flat(v) for k, v in track_param_dict["compressor"].items()}
@@ -236,8 +240,8 @@ class AdvancedMixConsole:
         master = stems.sum(dim=2)  # (bs, 2, seq_len)
 
         if use_master_bus:
-            # The input fader folds into the EQ's sampled response and the
-            # output fader into the compressor's makeup gain
+            # The input fader folds into the EQ (its sampled response under
+            # "fs") and the output fader into the compressor's makeup gain
             # (10^((g+m)/20) * 10^(o/20) == 10^((g+m+o)/20)).
             master = ops.parametric_eq(
                 master, sr,

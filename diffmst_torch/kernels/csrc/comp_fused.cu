@@ -54,6 +54,7 @@ __device__ __forceinline__ KneeGrad knee_grad(float over, float irm1, float knee
 }
 
 struct CompressorOp {
+  using Map = diffmst::Affine;
   const float* x;
   const float* x_delayed;
   const float* params;
@@ -94,6 +95,7 @@ struct CompressorEnvelopeOp : CompressorOp {
 // dx_delayed = dy * gain and sums, per row, the cotangents of the five
 // parameters in the order of `params`.
 struct CompressorBackwardOp {
+  using Map = diffmst::Affine;
   static constexpr int kSums = 5;
   const float* x;
   const float* x_delayed;
@@ -142,7 +144,7 @@ struct CompressorBackwardOp {
 }  // namespace
 
 extern "C" long long diffmst_compressor_scratch_bytes(int rows, long long T) {
-  return diffmst::scratch_bytes(rows, T);
+  return diffmst::scratch_bytes<CompressorEnvelopeOp>(rows, T);
 }
 
 // envelope: (rows, T) to receive g_s for a backward, or null.
@@ -159,7 +161,7 @@ extern "C" int diffmst_compressor_fused_gain(const float* x, const float* x_dela
 }
 
 extern "C" long long diffmst_compressor_backward_scratch_bytes(int rows, long long T) {
-  return diffmst::scratch_bytes(rows, T, CompressorBackwardOp::kSums);
+  return diffmst::scratch_bytes<CompressorBackwardOp>(rows, T);
 }
 
 // dparams: (5, rows), the cotangents of the rows of params.

@@ -1,26 +1,37 @@
-// Chunked scan of first-order affine recurrences along time, for Hopper (sm_90a).
+// Chunked scan of first-order recurrences along time, for Hopper (sm_90a).
 //
-// A row of T samples evolves as y[n] = a[n] * y[n-1] + s[n] from y[-1] = 0.
-// Each step is the affine map y -> a*y + s, and maps compose associatively,
-// so the recurrence is a scan. The TPU kernels walked time chunks in order on
-// one core with the carry in VMEM; blocks on a GPU run in parallel and in no
+// A row of T samples evolves as state[n] = f_n(state[n-1]) from a zero
+// state, where each f_n belongs to a family of maps that is closed under
+// composition: the scalar affine map y -> a*y + b (K1, K2, K4), the
+// min-affine map y -> min(c, a*y + d) (K3) and the 2x2 affine map
+// v -> M v + u on a two-value state (K5). Maps compose associatively, so the
+// recurrence is a scan. The TPU kernels walked time chunks in order on one
+// core with the carry in VMEM; blocks on a GPU run in parallel and in no
 // order, so the scan here takes three passes over (rows, T) row-major data:
 //
 //   1. chunk_totals:  one block per (chunk of kChunk samples, row). Each
 //      thread composes its kItems samples in order; a block scan (warp
-//      shuffles + one shared word per warp) gives the chunk's total map.
+//      shuffles + one shared map per warp) gives the chunk's total map.
 //   2. chunk_carries: one block per row scans the chunk totals into the
 //      state entering every chunk.
 //   3. chunk_apply:   the pass-1 blocks again. Each recomputes its thread
 //      prefixes, applies them to the chunk's carry-in and runs its samples
-//      forward, handing each y[n] to the op's store().
+//      forward, handing each sample's state to the op's store().
 //
-// An Op supplies step(row, t) -> the map of sample t, and store(row, t, y).
-// Pass 3 keeps the maps of its loads in registers, so a sample's inputs are
-// read twice in all (passes 1 and 3) and its output written once.
+// A Map type provides `using State`, `static Map identity()`,
+// `static Map compose(Map first, Map then)` (apply `first`, then `then`) and
+// `State apply(State) const`; the zero state is State{}. An Op names its
+// `Map` and supplies step(row, t) -> the Map of sample t, and store(). With a scalar (double)
+// state, store(row, t, y) receives the new state rounded to float; with a
+// vector state, store(row, t, before, after) receives the states before and
+// after the step, in double. Pass 3 keeps the maps of its loads in
+// registers, so a sample's inputs are read twice in all (passes 1 and 3)
+// and its output written once; an Op whose maps are large declares
+// `static constexpr bool kRecompute = true`, and pass 3 calls step() again
+// instead (its loads then hit the L1 cache).
 //
 // An Op that declares `static constexpr int kSums = S` (S > 0) also reduces
-// over each row: its store(row, t, y, sums) adds to S double accumulators.
+// over each row: its store(..., sums) adds to S double accumulators.
 // Pass 3 sums them over the block (warp shuffles, then the warps in order)
 // into one partial per (row, chunk), and a fourth pass, row_sums, adds a
 // row's partials in chunk order. No atomics: the sums are deterministic.
@@ -32,12 +43,13 @@
 // Maps are composed in double precision. With a pole near 1 (a = 0.9998 for
 // a 250 ms attack at 44.1 kHz) a float32 scan's rounding piles up to about
 // 5e-4 dB on gains of tens of dB, whichever order it composes in; in double
-// the kernel rounds once, when it stores y as float32. This scan is bound by
-// memory, far below the card's float64 rate, so the cost is registers.
+// the kernel rounds once, when it stores y as float32. These scans are bound
+// by memory, far below the card's float64 rate, so the cost is registers.
 
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 #include <cuda_runtime.h>
 
@@ -48,98 +60,167 @@ constexpr int kItems = 8;
 constexpr int kChunk = kThreads * kItems;  // samples per block
 constexpr int kWarps = kThreads / 32;
 
+// y -> a*y + b
+struct Affine {
+  using State = double;
+  double a;
+  double b;
+
+  __device__ __forceinline__ static Affine identity() { return Affine{1.0, 0.0}; }
+  __device__ __forceinline__ static Affine compose(Affine first, Affine then) {
+    return Affine{first.a * then.a, then.a * first.b + then.b};
+  }
+  __device__ __forceinline__ double apply(double y) const { return a * y + b; }
+};
+
+// y -> min(c, a*y + d). The identity's c is +inf; fmin drops the NaN that
+// a*c gives where a product of poles underflows to 0, keeping the other
+// bound, as the composition of "no clamp yet" requires.
+struct MinAffine {
+  using State = double;
+  double a;
+  double d;
+  double c;
+
+  __device__ __forceinline__ static MinAffine identity() {
+    return MinAffine{1.0, 0.0, __longlong_as_double(0x7ff0000000000000LL)};
+  }
+  __device__ __forceinline__ static MinAffine compose(MinAffine first, MinAffine then) {
+    return MinAffine{first.a * then.a, then.a * first.d + then.d,
+                     fmin(then.c, then.a * first.c + then.d)};
+  }
+  __device__ __forceinline__ double apply(double y) const { return fmin(c, a * y + d); }
+};
+
+struct Vec2 {
+  double v1;
+  double v2;
+};
+
+// v -> M v + u with M = [[m11, m12], [m21, m22]]
+struct Affine2 {
+  using State = Vec2;
+  double m11, m12, m21, m22;
+  double u1, u2;
+
+  __device__ __forceinline__ static Affine2 identity() {
+    return Affine2{1.0, 0.0, 0.0, 1.0, 0.0, 0.0};
+  }
+  __device__ __forceinline__ static Affine2 compose(Affine2 f, Affine2 g) {  // g . f
+    return Affine2{g.m11 * f.m11 + g.m12 * f.m21, g.m11 * f.m12 + g.m12 * f.m22,
+                   g.m21 * f.m11 + g.m22 * f.m21, g.m21 * f.m12 + g.m22 * f.m22,
+                   g.m11 * f.u1 + g.m12 * f.u2 + g.u1, g.m21 * f.u1 + g.m22 * f.u2 + g.u2};
+  }
+  __device__ __forceinline__ Vec2 apply(Vec2 s) const {
+    return Vec2{m11 * s.v1 + m12 * s.v2 + u1, m21 * s.v1 + m22 * s.v2 + u2};
+  }
+};
+
+// The Map type of an Op: what its step() returns.
+template <class Op>
+using op_map = typename Op::Map;
+
 // Op::kSums, or 0 for an Op that declares none.
 template <class Op, class = void>
 struct op_sums : std::integral_constant<int, 0> {};
 template <class Op>
 struct op_sums<Op, std::void_t<decltype(Op::kSums)>> : std::integral_constant<int, Op::kSums> {};
 
-// y -> a*y + b
-struct Affine {
-  double a;
-  double b;
-};
+// Op::kRecompute, or false.
+template <class Op, class = void>
+struct op_recompute : std::false_type {};
+template <class Op>
+struct op_recompute<Op, std::void_t<decltype(Op::kRecompute)>>
+    : std::integral_constant<bool, Op::kRecompute> {};
 
-__device__ __forceinline__ Affine identity() { return Affine{1.0, 0.0}; }
-
-// Apply `first`, then `then`.
-__device__ __forceinline__ Affine compose(Affine first, Affine then) {
-  return Affine{first.a * then.a, then.a * first.b + then.b};
+// v from the lane d below, field by field (a Map is a struct of doubles).
+template <class T>
+__device__ __forceinline__ T shfl_up(const T& v, int d) {
+  static_assert(sizeof(T) % sizeof(double) == 0, "a Map is a struct of doubles");
+  constexpr int n = sizeof(T) / sizeof(double);
+  double r[n];
+  memcpy(r, &v, sizeof(T));
+#pragma unroll
+  for (int k = 0; k < n; ++k) r[k] = __shfl_up_sync(0xffffffffu, r[k], d);
+  T out;
+  memcpy(&out, r, sizeof(T));
+  return out;
 }
 
 // Exclusive scan across the block, in thread order: returns the composition
 // of every earlier thread's map (identity for thread 0) and writes the
 // whole block's composition to *total. Every thread of the block must call it.
-__device__ __forceinline__ Affine block_exclusive_scan(Affine v, Affine* total) {
-  __shared__ Affine warp_totals[kWarps];
+template <class Map>
+__device__ __forceinline__ Map block_exclusive_scan(Map v, Map* total) {
+  __shared__ Map warp_totals[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  Affine inc = v;  // inclusive scan within the warp
+  Map inc = v;  // inclusive scan within the warp
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const double pa = __shfl_up_sync(0xffffffffu, inc.a, d);
-    const double pb = __shfl_up_sync(0xffffffffu, inc.b, d);
-    if (lane >= d) inc = compose(Affine{pa, pb}, inc);
+    const Map p = shfl_up(inc, d);
+    if (lane >= d) inc = Map::compose(p, inc);
   }
-  const double ea = __shfl_up_sync(0xffffffffu, inc.a, 1);
-  const double eb = __shfl_up_sync(0xffffffffu, inc.b, 1);
-  const Affine exc = lane == 0 ? identity() : Affine{ea, eb};
+  const Map e = shfl_up(inc, 1);
+  const Map exc = lane == 0 ? Map::identity() : e;
   if (lane == 31) warp_totals[warp] = inc;
   __syncthreads();
 
   if (warp == 0) {  // inclusive scan of the warp totals
-    Affine w = lane < kWarps ? warp_totals[lane] : identity();
+    Map w = lane < kWarps ? warp_totals[lane] : Map::identity();
 #pragma unroll
     for (int d = 1; d < kWarps; d <<= 1) {
-      const double pa = __shfl_up_sync(0xffffffffu, w.a, d);
-      const double pb = __shfl_up_sync(0xffffffffu, w.b, d);
-      if (lane >= d) w = compose(Affine{pa, pb}, w);
+      const Map p = shfl_up(w, d);
+      if (lane >= d) w = Map::compose(p, w);
     }
     if (lane < kWarps) warp_totals[lane] = w;
   }
   __syncthreads();
 
-  const Affine before = warp == 0 ? identity() : warp_totals[warp - 1];
+  const Map before = warp == 0 ? Map::identity() : warp_totals[warp - 1];
   *total = warp_totals[kWarps - 1];
   __syncthreads();  // warp_totals is free for the next call
-  return compose(before, exc);
+  return Map::compose(before, exc);
 }
 
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
-chunk_totals(Op op, Affine* totals, int64_t T, int n_chunks) {
+chunk_totals(Op op, op_map<Op>* totals, int64_t T, int n_chunks) {
+  using Map = op_map<Op>;
   const int row = blockIdx.y;
   const int64_t t0 = (int64_t)blockIdx.x * kChunk + (int64_t)threadIdx.x * kItems;
-  Affine acc = identity();
+  Map acc = Map::identity();
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    if (t0 + i < T) acc = compose(acc, op.step(row, t0 + i));
+    if (t0 + i < T) acc = Map::compose(acc, op.step(row, t0 + i));
   }
-  Affine total;
+  Map total;
   block_exclusive_scan(acc, &total);
   if (threadIdx.x == 0) totals[(int64_t)row * n_chunks + blockIdx.x] = total;
 }
 
 // carries[row, c] = the state entering chunk c of the row.
+template <class Map>
 __global__ void __launch_bounds__(kThreads)
-chunk_carries(const Affine* totals, double* carries, int n_chunks) {
-  const Affine* tot = totals + (int64_t)blockIdx.x * n_chunks;
-  double* car = carries + (int64_t)blockIdx.x * n_chunks;
+chunk_carries(const Map* totals, typename Map::State* carries, int n_chunks) {
+  using State = typename Map::State;
+  const Map* tot = totals + (int64_t)blockIdx.x * n_chunks;
+  State* car = carries + (int64_t)blockIdx.x * n_chunks;
   const int per = (n_chunks + kThreads - 1) / kThreads;
   const int c0 = threadIdx.x * per;
-  Affine acc = identity();
+  Map acc = Map::identity();
   for (int i = 0; i < per; ++i) {
-    if (c0 + i < n_chunks) acc = compose(acc, tot[c0 + i]);
+    if (c0 + i < n_chunks) acc = Map::compose(acc, tot[c0 + i]);
   }
-  Affine total;
-  const Affine before = block_exclusive_scan(acc, &total);
-  double y = before.b;  // the earlier chunks' map applied to the zero state
+  Map total;
+  const Map before = block_exclusive_scan(acc, &total);
+  State y = before.apply(State{});  // the earlier chunks' map applied to the zero state
   for (int i = 0; i < per; ++i) {
     const int c = c0 + i;
     if (c < n_chunks) {
       car[c] = y;
-      y = tot[c].a * y + tot[c].b;
+      y = tot[c].apply(y);
     }
   }
 }
@@ -169,33 +250,58 @@ __device__ __forceinline__ void block_sum(double (&v)[S]) {
   }
 }
 
+// Hands sample t's state to the op (see the top of this file).
+template <class Op, class State, int S>
+__device__ __forceinline__ void store_state(const Op& op, int row, int64_t t, const State& before,
+                                            const State& after, double* sums) {
+  if constexpr (std::is_same<State, double>::value) {
+    if constexpr (S > 0) {
+      op.store(row, t, (float)after, sums);
+    } else {
+      op.store(row, t, (float)after);
+    }
+  } else {
+    if constexpr (S > 0) {
+      op.store(row, t, before, after, sums);
+    } else {
+      op.store(row, t, before, after);
+    }
+  }
+}
+
 // partials[row, chunk, 0..S) receives the block's sums when the Op has any.
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
-chunk_apply(Op op, const double* carries, int64_t T, int n_chunks, double* partials) {
+chunk_apply(Op op, const typename op_map<Op>::State* carries, int64_t T, int n_chunks,
+            double* partials) {
+  using Map = op_map<Op>;
+  using State = typename Map::State;
   constexpr int S = op_sums<Op>::value;
+  constexpr bool kKeep = !op_recompute<Op>::value;
   const int row = blockIdx.y;
   const int64_t t0 = (int64_t)blockIdx.x * kChunk + (int64_t)threadIdx.x * kItems;
-  Affine steps[kItems];
-  Affine acc = identity();
+  [[maybe_unused]] Map steps[kKeep ? kItems : 1];
+  Map acc = Map::identity();
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    steps[i] = t0 + i < T ? op.step(row, t0 + i) : identity();
-    acc = compose(acc, steps[i]);
+    const Map m = t0 + i < T ? op.step(row, t0 + i) : Map::identity();
+    if constexpr (kKeep) steps[i] = m;
+    acc = Map::compose(acc, m);
   }
-  Affine total;
-  const Affine before = block_exclusive_scan(acc, &total);
-  double y = before.a * carries[(int64_t)row * n_chunks + blockIdx.x] + before.b;
+  Map total;
+  const Map before = block_exclusive_scan(acc, &total);
+  State y = before.apply(carries[(int64_t)row * n_chunks + blockIdx.x]);
   double sums[S > 0 ? S : 1] = {};
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     if (t0 + i < T) {
-      y = steps[i].a * y + steps[i].b;
-      if constexpr (S > 0) {
-        op.store(row, t0 + i, (float)y, sums);
+      const State prev = y;
+      if constexpr (kKeep) {
+        y = steps[i].apply(y);
       } else {
-        op.store(row, t0 + i, (float)y);
+        y = op.step(row, t0 + i).apply(y);
       }
+      store_state<Op, State, S>(op, row, t0 + i, prev, y, sums);
     }
   }
   if constexpr (S > 0) {
@@ -221,11 +327,14 @@ __global__ void row_sums(const double* partials, float* out, int rows, int n_chu
 
 inline int num_chunks(int64_t T) { return (int)((T + kChunk - 1) / kChunk); }
 
-// Bytes of scratch a scan of (rows, T) needs: the chunk totals, the carries
-// and, for an Op with S sums, S partials a chunk.
-inline long long scratch_bytes(int rows, int64_t T, int sums = 0) {
+// Bytes of scratch a scan of (rows, T) with this Op needs: the chunk totals,
+// the carries and, for an Op with S sums, S partials a chunk.
+template <class Op>
+long long scratch_bytes(int rows, int64_t T) {
+  using Map = op_map<Op>;
   const long long n = (long long)rows * num_chunks(T);
-  return n * (long long)(sizeof(Affine) + sizeof(double) + sums * sizeof(double));
+  return n * (long long)(sizeof(Map) + sizeof(typename Map::State) +
+                         op_sums<Op>::value * sizeof(double));
 }
 
 // Runs the three passes on `stream`, and row_sums into `sums_out` ((S, rows)
@@ -233,18 +342,20 @@ inline long long scratch_bytes(int rows, int64_t T, int sums = 0) {
 template <class Op>
 int scan_rows(const Op& op, void* scratch, int rows, int64_t T, cudaStream_t stream,
               float* sums_out = nullptr) {
+  using Map = op_map<Op>;
+  using State = typename Map::State;
   constexpr int S = op_sums<Op>::value;
   const int n_chunks = num_chunks(T);
-  Affine* totals = static_cast<Affine*>(scratch);
-  double* carries = reinterpret_cast<double*>(totals + (long long)rows * n_chunks);
+  Map* totals = static_cast<Map*>(scratch);
+  State* carries = reinterpret_cast<State*>(totals + (long long)rows * n_chunks);
   const dim3 grid(n_chunks, rows);
   chunk_totals<Op><<<grid, kThreads, 0, stream>>>(op, totals, T, n_chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  chunk_carries<<<rows, kThreads, 0, stream>>>(totals, carries, n_chunks);
+  chunk_carries<Map><<<rows, kThreads, 0, stream>>>(totals, carries, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  double* partials = carries + (long long)rows * n_chunks;
+  double* partials = reinterpret_cast<double*>(carries + (long long)rows * n_chunks);
   chunk_apply<Op><<<grid, kThreads, 0, stream>>>(op, carries, T, n_chunks, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 0) return (int)err;

@@ -31,9 +31,29 @@ sum over the row, reduced per block and then per row in a fixed order. It
 reads dy and y and writes db, 12 bytes a sample (20 with a per-sample
 alpha). ``onepole_core`` is an ``autograd.Function`` over both halves.
 
+K3, ``release_min_scan(g, alpha)``, is the release stage of the decoupled
+compressor: y[n] = min(g[n], a * y[n-1] + (1 - a) * g[n]) from y[-1] = 0 dB,
+with g (B, T) float32 gains in dB and alpha (B,). It replaces the Pallas
+kernel ``diffmst_tpu/kernels/scan1p.py::minscan_core`` (pallas_call at
+scan1p.py:253) behind ``release_min_scan``:270. The maps y -> min(c, a*y +
+d) compose associatively as (A, D, C) (scan1p.py:196-199), so K3 is the same
+three-pass scan over a min-affine map, composed in float64 and rounded once:
+a float32 composition drifts at a = 0.9998 as K1's does. It reads g and
+writes y, 8 bytes a sample (20.0 us at 32 x 262,144 on an H100 SXM); on an
+NVIDIA H100 80GB HBM3 at 700 W it takes 0.12 ms there, as K1 does.
+
+Its backward, ``release_min_scan_backward(dy, g, alpha, y)``, replaces the
+VJP at scan1p.py:294-297, which differentiated the XLA twin
+``_minscan_ref``:277. y[n] takes the linear branch where L[n] = y[n-1] <
+g[n] (y[-1] = 0) and equals g[n] elsewhere, ties included (JAX's ``min``
+splits a tie's cotangent in halves instead). The adjoint is a reverse
+one-pole with the per-sample coefficient a * L[n+1]: s[n] = dy[n] + a L[n+1]
+s[n+1], dg = s ((1 - a) L + 1 - L), and dalpha = sum s L (y[n-1] - g[n]), a
+row sum. It reads dy, y and g and writes dg, 16 bytes a sample.
+
 On a CPU tensor each wrapper runs its plain PyTorch version
-(``onepole_core_plain``, ``onepole_core_backward_plain``); on a CUDA tensor
-it launches the kernel or raises.
+(``onepole_core_plain``, ``release_min_scan_plain`` and their backward
+versions); on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -51,6 +71,10 @@ __all__ = [
     "onepole_core_plain",
     "onepole_core_backward",
     "onepole_core_backward_plain",
+    "release_min_scan",
+    "release_min_scan_plain",
+    "release_min_scan_backward",
+    "release_min_scan_backward_plain",
 ]
 
 
@@ -65,6 +89,39 @@ def _hillis_steele(A: torch.Tensor, B: torch.Tensor):
         A = A * A_prev
         d *= 2
     return A, B
+
+
+def _hillis_steele_maps(elems, combine, identity):
+    """Inclusive scan along the last axis of maps given as a tuple of
+    tensors; ``combine(earlier, later)`` composes two such tuples and
+    ``identity`` holds each component's identity value."""
+    n = elems[0].shape[-1]
+    d = 1
+    while d < n:
+        prev = tuple(F.pad(e[..., :-d], (d, 0), value=v) for e, v in zip(elems, identity))
+        elems = combine(prev, elems)
+        d *= 2
+    return elems
+
+
+def _chunked_map_scan(elems, combine, identity, chunk: int = 512):
+    """Inclusive scan of maps along the last axis, as the kernels take it: a
+    Hillis-Steele scan inside each chunk of ``chunk`` samples, a scan of the
+    chunk totals, and each chunk's prefix composed before its samples. The
+    components are (B, T) tensors; compose in float64 for the kernels'
+    numbers."""
+    t = elems[0].shape[-1]
+    n_chunks = -(-t // chunk)
+    pad = n_chunks * chunk - t
+    E = tuple(
+        F.pad(e, (0, pad), value=v).reshape(*e.shape[:-1], n_chunks, chunk)
+        for e, v in zip(elems, identity)
+    )
+    E = _hillis_steele_maps(E, combine, identity)
+    totals = _hillis_steele_maps(tuple(e[..., -1] for e in E), combine, identity)
+    before = tuple(F.pad(e[..., :-1], (1, 0), value=v)[..., None] for e, v in zip(totals, identity))
+    E = combine(before, E)
+    return tuple(e.reshape(*e.shape[:-2], n_chunks * chunk)[..., :t] for e in E)
 
 
 def onepole_core_plain(b: torch.Tensor, alpha: torch.Tensor, chunk: int = 512) -> torch.Tensor:
@@ -122,6 +179,19 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
     ]
     lib.diffmst_onepole_backward.restype = ctypes.c_int
+    for fn in (lib.diffmst_minscan_scratch_bytes, lib.diffmst_minscan_backward_scratch_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
+        fn.restype = ctypes.c_longlong
+    lib.diffmst_release_min_scan.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    lib.diffmst_release_min_scan.restype = ctypes.c_int
+    lib.diffmst_release_min_scan_backward.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    lib.diffmst_release_min_scan_backward.restype = ctypes.c_int
     return lib
 
 
@@ -144,6 +214,26 @@ def _check(b: torch.Tensor, alpha: torch.Tensor, *more: torch.Tensor) -> None:
         raise ValueError(f"onepole_core takes at most 65535 rows, got {b.shape[0]}")
     if b.device.type != "cuda":
         raise ValueError(f"the onepole_core kernel runs on a CUDA device, not {b.device}")
+
+
+def _check_rows(name: str, x: torch.Tensor, alpha: torch.Tensor, *more: torch.Tensor) -> None:
+    """``x`` (B, T) float32 and ``alpha`` (B,) float32 on one CUDA device,
+    contiguous; ``more`` tensors shaped as x."""
+    if any(t.dtype != torch.float32 for t in (x, alpha, *more)):
+        raise TypeError(f"{name} takes float32, got {[str(t.dtype) for t in (x, alpha, *more)]}")
+    if x.ndim != 2 or alpha.shape != (x.shape[0],) or any(t.shape != x.shape for t in more):
+        raise ValueError(
+            f"{name} takes (B, T) rows and alpha (B,); got {tuple(x.shape)}, alpha "
+            f"{tuple(alpha.shape)} and {[tuple(t.shape) for t in more]}"
+        )
+    if any(t.device != x.device for t in (alpha, *more)):
+        raise ValueError(f"{name}: inputs on {[str(t.device) for t in (x, alpha, *more)]}")
+    if not all(t.is_contiguous() for t in (x, alpha, *more)):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if x.shape[0] > 65535:
+        raise ValueError(f"{name} takes at most 65535 rows, got {x.shape[0]}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the {name} kernel runs on a CUDA device, not {x.device}")
 
 
 def _launch(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -227,8 +317,129 @@ def onepole_core_backward(dy: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor
     return _launch_backward(dy, alpha, y)
 
 
+# ------------------------------------------------------------------ K3
+
+
+def _min_affine(earlier, later):
+    """(A, D, C) of y -> min(C, A*y + D): ``earlier`` then ``later``. fmin
+    keeps the other bound where an underflowed A times an identity's +inf
+    C gives NaN, as the kernel does."""
+    a1, d1, c1 = earlier
+    a2, d2, c2 = later
+    return a1 * a2, a2 * d1 + d2, torch.fmin(c2, a2 * c1 + d2)
+
+
+_MIN_AFFINE_IDENTITY = (1.0, 0.0, float("inf"))
+
+
+def release_min_scan_plain(g: torch.Tensor, alpha: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Plain PyTorch version of K3 (``diffmst_tpu/ops/compressor.py::
+    _release_min_scan``:126): the chunked Hillis-Steele scan of the (A, D,
+    C) maps in float64, applied to the 0 dB state entering the row (y =
+    min(C, D), as scan1p.py:287), rounded once to g's type."""
+    g64 = g.double()
+    a = alpha.double()[:, None].expand_as(g64)
+    _, D, C = _chunked_map_scan((a, (1.0 - a) * g64, g64), _min_affine, _MIN_AFFINE_IDENTITY, chunk)
+    return torch.fmin(C, D).to(g.dtype)
+
+
+def _linear_branch(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """L[n] = y[n-1] < g[n], with y[-1] = 0: where K3 took a * y[n-1] +
+    (1 - a) * g[n] rather than g[n]."""
+    return F.pad(y[:, :-1], (1, 0)) < g
+
+
+def release_min_scan_backward_plain(dy, g, alpha, y):
+    """Plain PyTorch version of K3's backward: (dg, dalpha) for the output
+    ``y`` and its cotangent ``dy``. The adjoint runs through
+    ``onepole_core_plain`` on time-reversed rows with the coefficient
+    a * L[n+1]; dalpha's products and row sums are taken in float64."""
+    lin = _linear_branch(g, y)
+    a = alpha[:, None]
+    coef = torch.where(F.pad(lin[:, 1:], (0, 1), value=False), a, torch.zeros_like(a))
+    s = onepole_core_plain(dy.flip(-1), coef.flip(-1).contiguous()).flip(-1)
+    dg = torch.where(lin, (1.0 - a) * s, s)
+    y_prev = F.pad(y[:, :-1], (1, 0))
+    dalpha = torch.where(lin, s.double() * (y_prev.double() - g.double()), 0.0).sum(dim=-1)
+    return dg, dalpha.to(alpha.dtype)
+
+
+def _launch_minscan(g: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    _check_rows("release_min_scan", g, alpha)
+    y = torch.empty_like(g)
+    if g.numel() == 0:
+        return y
+    rows, t = g.shape
+    lib = _lib()
+    with torch.cuda.device(g.device):
+        scratch = torch.empty(lib.diffmst_minscan_scratch_bytes(rows, t), dtype=torch.uint8, device=g.device)
+        err = lib.diffmst_release_min_scan(
+            g.data_ptr(), alpha.data_ptr(), y.data_ptr(), scratch.data_ptr(), rows, t,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(lib, err, "release_min_scan")
+    release_min_scan.launches += 1
+    return y
+
+
+def _launch_minscan_backward(dy, g, alpha, y):
+    _check_rows("release_min_scan_backward", dy, alpha, g, y)
+    dg = torch.empty_like(dy)
+    dalpha = torch.empty_like(alpha)
+    if dy.numel() == 0:
+        return dg, dalpha.zero_()
+    rows, t = dy.shape
+    lib = _lib()
+    with torch.cuda.device(dy.device):
+        scratch = torch.empty(
+            lib.diffmst_minscan_backward_scratch_bytes(rows, t), dtype=torch.uint8, device=dy.device
+        )
+        err = lib.diffmst_release_min_scan_backward(
+            dy.data_ptr(), g.data_ptr(), alpha.data_ptr(), y.data_ptr(), dg.data_ptr(),
+            dalpha.data_ptr(), scratch.data_ptr(), rows, t, torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(lib, err, "release_min_scan_backward")
+    release_min_scan_backward.launches += 1
+    return dg, dalpha
+
+
+class _MinScan(torch.autograd.Function):
+    """K3 with its backward; ``plain`` picks the plain versions of both."""
+
+    @staticmethod
+    def forward(ctx, g, alpha, plain: bool):
+        y = release_min_scan_plain(g, alpha) if plain else _launch_minscan(g, alpha)
+        ctx.plain = plain
+        ctx.save_for_backward(g, alpha, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        g, alpha, y = ctx.saved_tensors
+        backward = release_min_scan_backward_plain if ctx.plain else _launch_minscan_backward
+        dg, dalpha = backward(dy.contiguous(), g, alpha, y)
+        return dg, (dalpha if ctx.needs_input_grad[1] else None), None
+
+
+def release_min_scan(g: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """y[n] = min(g[n], alpha * y[n-1] + (1 - alpha) * g[n]) over the last
+    axis of g (B, T) from y[-1] = 0; alpha (B,). Differentiable in g and
+    alpha. CPU tensors take the plain versions, CUDA tensors the kernels."""
+    return _MinScan.apply(g, alpha, g.device.type == "cpu")
+
+
+def release_min_scan_backward(dy, g, alpha, y):
+    """(dg, dalpha) of ``y = release_min_scan(g, alpha)`` for the cotangent
+    dy. CPU tensors take the plain version, CUDA tensors the kernel."""
+    if dy.device.type == "cpu":
+        return release_min_scan_backward_plain(dy, g, alpha, y)
+    return _launch_minscan_backward(dy, g, alpha, y)
+
+
 # Kernel launches (CUDA calls only); callers reset them to 0 to count a run.
-# The backward counts its per-row (K1) and per-sample (K4) launches apart.
+# K1's backward counts its per-row (K1) and per-sample (K4) launches apart.
 onepole_core.launches = 0
 onepole_core_backward.launches = 0
 onepole_core_backward.launches_per_sample = 0
+release_min_scan.launches = 0
+release_min_scan_backward.launches = 0

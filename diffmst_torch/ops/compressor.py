@@ -10,9 +10,15 @@ lookahead and makeup gain. Smoothers:
     (``kernels/scan1p.py``), then the gain and the roll in PyTorch;
   * ``"fused"`` — the same numbers through kernel K2
     (``kernels/comp_fused.py``): detector, knee, scan and gain in one pass;
-  * ``"auto"`` — ``"fused"``.
+  * ``"auto"`` — ``"fused"``;
+  * ``"decoupled"`` and ``"decoupled_pallas"`` — attack/release smoothing
+    with a working release (``diffmst_tpu/ops/compressor.py::
+    _smooth_decoupled``:147): the release min-scan, kernel K3
+    (``kernels/scan1p.py::release_min_scan``), then the attack one-pole,
+    K1. Both names take the same path: JAX's "decoupled" was its XLA scan
+    and "decoupled_pallas" its Pallas kernels.
 
-``"decoupled"`` and ``"ballistics"`` are not ported yet.
+``"ballistics"`` (a sequential scan in JAX) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import math
 import torch
 
 from diffmst_torch.kernels.comp_fused import compressor_fused_gain
-from diffmst_torch.kernels.scan1p import onepole_core
+from diffmst_torch.kernels.scan1p import onepole_core, release_min_scan
 
 __all__ = ["compressor", "compressor_gain_db"]
 
@@ -62,14 +68,6 @@ def _smooth_fsm(g_db: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.fft.irfft(G * H, n=n, dim=-1)
 
 
-def _not_ported(smoother: str):
-    return NotImplementedError(
-        f"compressor smoother {smoother!r} is not ported yet (ROADMAP Queue 2, "
-        "K3 for 'decoupled'; 'ballistics' follows it); use 'auto', 'fused', "
-        "'scan' or 'fsm'"
-    )
-
-
 def compressor_gain_db(
     x: torch.Tensor,
     sample_rate: float,
@@ -84,9 +82,9 @@ def compressor_gain_db(
     """Smoothed gain-reduction envelope in dB for flat (B, T) input.
 
     The envelope alone has no fused form, so ``"auto"`` takes K1 here
-    (``"scan"``).
+    (``"scan"``). Only the decoupled smoothers read ``release_ms``; the
+    attack-only ones ignore it, as the reference does.
     """
-    del release_ms  # the attack-only smoothers ignore it, as the reference does
     x_db = 20.0 * torch.log10(torch.clamp(torch.abs(x), min=eps))
     g_c = _static_gain_db(x_db, threshold_db[:, None], ratio[:, None], knee_db[:, None])
     alpha_a = _ballistics_coeff(attack_ms, sample_rate)
@@ -94,8 +92,16 @@ def compressor_gain_db(
         return _smooth_fsm(g_c, alpha_a)
     if smoother in ("scan", "auto"):
         return onepole_core(((1.0 - alpha_a)[:, None] * g_c).contiguous(), alpha_a.contiguous())
-    if smoother in ("decoupled", "ballistics"):
-        raise _not_ported(smoother)
+    if smoother in ("decoupled", "decoupled_pallas"):
+        # release stage y1 = min(g, ar y1[n-1] + (1 - ar) g), then the attack pole
+        alpha_r = _ballistics_coeff(release_ms, sample_rate)
+        y1 = release_min_scan(g_c.contiguous(), alpha_r.contiguous())
+        return onepole_core(((1.0 - alpha_a)[:, None] * y1).contiguous(), alpha_a.contiguous())
+    if smoother == "ballistics":
+        raise NotImplementedError(
+            "compressor smoother 'ballistics' is not ported yet (ROADMAP Queue 1); "
+            "use 'decoupled' for a working release, or 'auto', 'fused', 'scan' or 'fsm'"
+        )
     raise ValueError(f"unknown smoother: {smoother!r}")
 
 

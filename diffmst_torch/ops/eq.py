@@ -1,8 +1,15 @@
-"""Six-band parametric EQ applied by frequency sampling.
+"""Six-band parametric EQ: frequency sampling, or the exact causal cascade.
 
-Port of ``diffmst_tpu/ops/eq.py`` on its ``"fs"`` path: the cascade's
-response is sampled on the rFFT grid of the whole segment and multiplied in
-the frequency domain (circular convolution), as the reference does.
+Port of ``diffmst_tpu/ops/eq.py``. Methods:
+
+  * ``"fs"`` — the reference's: the cascade's response is sampled on the
+    rFFT grid of the whole segment and multiplied in the frequency domain
+    (circular convolution);
+  * ``"scan"`` and ``"scan_pallas"`` — the causal cascade of the six
+    biquads from zero state (``scipy.signal.sosfilt``), through kernel K5
+    (``kernels/iir_fused.py``) on a CUDA tensor and its plain version
+    (``ops/iir.py``) on a CPU tensor. Both names take the same path: JAX's
+    "scan" was its XLA scan and "scan_pallas" its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -11,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from diffmst_torch.kernels import iir_fused
 from diffmst_torch.ops.biquad import HIGH_SHELF, LOW_SHELF, PEAKING, sos_frequency_response
 from diffmst_torch.ops.biquad import biquad as _make_biquad
 
@@ -74,17 +82,24 @@ def parametric_eq(
 ) -> torch.Tensor:
     """Apply the 6-band EQ to (batch, channels, time) audio.
 
-    ``linear_gain`` (batch,) is a fader folded into the sampled response.
-    Each of the 18 band parameters has shape (batch,), shared across
-    channels. Only the frequency-sampling method ``"fs"`` is ported; the
-    causal ``"scan"`` methods wait for the biquad-cascade kernel (ROADMAP
-    Queue 2, K5).
+    ``linear_gain`` (batch,) is a fader: folded into the sampled response
+    under ``"fs"``, applied to the signal before the cascade under the
+    causal methods. Each of the 18 band parameters has shape (batch,),
+    shared across channels.
     """
-    if method != "fs":
-        raise NotImplementedError(
-            f"eq method {method!r} is not ported yet (ROADMAP Queue 2, K5); use 'fs'"
-        )
     n = x.shape[-1]
+    if method in ("scan", "scan_pallas"):
+        bs, chs, _ = x.shape
+        b, a = _eq_sos(sample_rate, **eq_params)  # (bs, 6, 3)
+        flat = x.reshape(bs * chs, n)
+        if linear_gain is not None:
+            flat = flat * linear_gain.repeat_interleave(chs)[:, None]
+        y = iir_fused.sosfilt(
+            flat.contiguous(), b.repeat_interleave(chs, dim=0), a.repeat_interleave(chs, dim=0)
+        )
+        return y.reshape(bs, chs, n).to(x.dtype)
+    if method != "fs":
+        raise ValueError(f"unknown eq method: {method!r}")
     H = parametric_eq_response(sample_rate, n, **eq_params)  # (batch, bins)
     if linear_gain is not None:
         H = H * linear_gain[:, None].to(H.real.dtype)

@@ -1,21 +1,31 @@
-"""Full-song inference: analysis window, loudness gate, Hann overlap-add render.
+"""Full-song inference: analysis window, loudness gate, full-song render.
 
-Port of ``diffmst_tpu/utils/inference.py::run_diffmst`` on its ``"ola"``
-render mode:
+Port of ``diffmst_tpu/utils/inference.py``. ``run_diffmst``:
   1. crop a 262,144-sample analysis window from the tracks and the reference;
   2. gate tracks below -80 LUFS and normalize the rest to -48 LUFS (host);
   3. one model call on the analysis windows of the kept tracks;
-  4. render the whole song on the device in windows of ``analysis_len`` at
-     hop ``analysis_len // 2``, ``_RENDER_BS`` windows per console call,
-     Hann-weighted (the first window's first half forced to 1) and
-     overlap-added by a reshape and shift: window i's second half lands
-     exactly on window i+1's first half.
-The song goes to the device once and the mix comes back once.
+  4. render the whole song on the device, ``_RENDER_BS`` windows per console
+     call, in one of two modes:
+       * ``"ola"`` (the reference's): windows of ``analysis_len`` at hop
+         ``analysis_len // 2``, Hann-weighted (the first window's first half
+         forced to 1) and overlap-added by a reshape and shift: window i's
+         second half lands exactly on window i+1's first half;
+       * ``"streaming"`` (overlap-save): blocks of ``analysis_len // 2``,
+         each rendered with ``analysis_len // 4`` samples of true left
+         context that are then cut away, so consecutive blocks agree with
+         one render of the whole song instead of being cross-faded. With a
+         causal console (``comp_smoother="decoupled"``,
+         ``eq_method="scan"``) the blocks join without seams.
+The song goes to the device once and the mix comes back once, or stays on
+the device (``return_device``).
+
+``overlap_add_render`` and ``overlap_save_render`` are the same two renders
+assembled on the host around a render callable.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,10 +35,104 @@ from diffmst_torch.ops.loudness import integrated_loudness
 from diffmst_torch.ops.stft import hann_window
 from diffmst_torch.utils.device import DeviceLike, resolve_device
 
-__all__ = ["run_diffmst"]
+__all__ = ["run_diffmst", "overlap_add_render", "overlap_save_render"]
 
 # Windows per console call.
 _RENDER_BS = 4
+
+
+def _render_batched(render_window: Callable, wins: np.ndarray, device: torch.device) -> np.ndarray:
+    """Render (n, num_tracks, L) host windows in groups of ``_RENDER_BS``
+    (the last group padded with silent windows) on ``device``."""
+    bs = _RENDER_BS
+    outs = []
+    for i in range(0, wins.shape[0], bs):
+        group = wins[i : i + bs]
+        pad = bs - group.shape[0]
+        if pad:
+            group = np.concatenate([group, np.zeros((pad,) + group.shape[1:], group.dtype)])
+        out = render_window(torch.from_numpy(np.ascontiguousarray(group)).to(device))
+        outs.append(out[: bs - pad].detach().cpu().numpy())
+    return np.concatenate(outs, axis=0)
+
+
+def overlap_add_render(
+    render_window: Callable[[torch.Tensor], torch.Tensor],
+    tracks: np.ndarray,
+    window_len: int,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Hann overlap-add render of a song at hop ``window_len // 2``,
+    assembled on the host.
+
+    Args:
+      render_window: (bs, num_tracks, window_len) tensor on ``device`` ->
+        (bs, 2, window_len) mixes; ``_RENDER_BS`` windows a call.
+      tracks: (1, num_tracks, total_len) normalized stems (host array).
+      window_len: the window (the reference's: 262144).
+      device: where the windows go; None means the CUDA device.
+
+    Returns:
+      (1, 2, total_len) mix (host array).
+    """
+    dev = resolve_device(device)
+    hop = window_len // 2
+    total = tracks.shape[-1]
+    starts = list(range(0, total, hop))
+    wins = []
+    for s in starts:
+        w = tracks[0, :, s : s + window_len]
+        wins.append(np.pad(w, ((0, 0), (0, window_len - w.shape[-1]))))
+    rendered = _render_batched(render_window, np.stack(wins), dev)
+
+    win = hann_window(window_len).astype(np.float32)
+    first = np.concatenate([np.ones(window_len // 2, np.float32), win[window_len // 2 :]])
+    out = np.zeros((1, 2, total + window_len), np.float32)
+    for i, s in enumerate(starts):
+        out[0, :, s : s + window_len] += rendered[i] * (first if i == 0 else win)
+    return out[..., :total]
+
+
+def overlap_save_render(
+    render_window: Callable[[torch.Tensor], torch.Tensor],
+    tracks: np.ndarray,
+    block_len: int,
+    context_len: int = 65536,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Streaming (overlap-save) render of a song, assembled on the host: each
+    output block is cut from a render primed with ``context_len`` samples of
+    true left context (zeros before the song), so the compressor's state and
+    the causal EQ's have converged where the block starts.
+
+    Args:
+      render_window: (bs, num_tracks, context_len + block_len) tensor on
+        ``device`` -> (bs, 2, context_len + block_len) mixes; ``_RENDER_BS``
+        windows a call.
+      tracks: (1, num_tracks, total_len) normalized stems (host array).
+      block_len: output samples per block.
+      context_len: warm-up samples before each block.
+      device: where the windows go; None means the CUDA device.
+
+    Returns:
+      (1, 2, total_len) mix (host array).
+    """
+    dev = resolve_device(device)
+    total = tracks.shape[-1]
+    win_len = context_len + block_len
+    starts = list(range(0, total, block_len))
+    wins = []
+    for s in starts:
+        lo = s - context_len
+        w = tracks[0, :, max(lo, 0) : s + block_len]
+        pad_l = max(0, -lo)
+        wins.append(np.pad(w, ((0, 0), (pad_l, win_len - w.shape[-1] - pad_l))))
+    rendered = _render_batched(render_window, np.stack(wins), dev)
+
+    out = np.zeros((1, 2, len(starts) * block_len), np.float32)
+    for i, s in enumerate(starts):
+        out[0, :, s : s + block_len] = rendered[i][:, context_len:]
+    return out[..., :total]
 
 
 def _gate(analysis_tracks: np.ndarray, sample_rate: float):
@@ -96,6 +200,38 @@ def _device_ola(
     return torch.cat([body, seconds[-1]], dim=-1)
 
 
+def _device_overlap_save(
+    mix_console,
+    use_fx_bus: bool,
+    tracks_padded: torch.Tensor,
+    gains: torch.Tensor,
+    tp: torch.Tensor,
+    fp: torch.Tensor,
+    mp: torch.Tensor,
+    n_blocks: int,
+    block_len: int,
+    context_len: int,
+    group_bs: int,
+) -> torch.Tensor:
+    """Overlap-save render of (num_tracks, context_len + n_blocks * block_len)
+    raw stems, the song starting after ``context_len`` zeros, with per-track
+    gains (0 for gated tracks) -> (2, n_blocks * block_len). Block i renders
+    the window [i * block_len, i * block_len + context_len + block_len) and
+    keeps its last ``block_len`` samples."""
+    win_len = context_len + block_len
+    seg_len = (group_bs - 1) * block_len + win_len
+    tpg = tp.expand(group_bs, -1, -1)
+    fpg = fp.expand(group_bs, -1)
+    mpg = mp.expand(group_bs, -1)
+    rendered = torch.empty(n_blocks, 2, block_len, device=tracks_padded.device)
+    for i in range(0, n_blocks, group_bs):
+        seg = tracks_padded[:, i * block_len : i * block_len + seg_len] * gains[:, None]
+        wins = seg.unfold(-1, win_len, block_len).transpose(0, 1)  # (group_bs, tracks, win_len)
+        mix = mix_console(wins, tpg, fpg, mpg, use_fx_bus=use_fx_bus).mix
+        rendered[i : i + group_bs] = mix[:, :, context_len:]
+    return rendered.transpose(0, 1).reshape(2, n_blocks * block_len)
+
+
 @torch.inference_mode()
 def run_diffmst(
     tracks: np.ndarray,
@@ -108,9 +244,10 @@ def run_diffmst(
     sample_rate: float = 44100.0,
     use_fx_bus: bool = False,
     render_mode: str = "ola",
+    return_device: bool = False,
     output_format: str = "float32",
     device: DeviceLike = None,
-) -> Tuple[np.ndarray, dict, dict, dict]:
+) -> Tuple[Union[np.ndarray, torch.Tensor], dict, dict, dict]:
     """Full-song mix style transfer.
 
     Args:
@@ -119,20 +256,26 @@ def run_diffmst(
       model_apply: (tracks, ref_mix) tensors -> (track_params, fx_params,
         master_params), e.g. a ``MixStyleTransferModel`` on ``device``.
       mix_console: console instance rendering on ``device``.
-      render_mode: "ola", the reference's Hann overlap-add. The seam-free
-        "streaming" mode is not ported yet (it needs the causal EQ, K5).
+      render_mode: "ola", the reference's Hann overlap-add, or "streaming",
+        the seam-free overlap-save render (blocks of ``analysis_len // 2``
+        after ``analysis_len // 4`` samples of context), meant for a causal
+        console (``comp_smoother="decoupled"``, ``eq_method="scan"``).
+      return_device: return the mix as a tensor on ``device`` (float32,
+        whatever ``output_format`` says) instead of a host array.
       output_format: "float32" or "pcm16" (int16, quantized on the device).
       device: where the song is rendered; None means the CUDA device.
 
     Returns:
-      (pred_mix (1, 2, total_len) host array, track_param_dict,
-       fx_param_dict, master_param_dict) — the dicts denormalized.
+      (pred_mix (1, 2, total_len), track_param_dict, fx_param_dict,
+       master_param_dict) — the dicts denormalized.
     """
     if output_format not in ("float32", "pcm16"):
         raise ValueError(f"bad output_format {output_format!r}")
-    if render_mode != "ola":
+    if render_mode not in ("ola", "streaming"):
+        raise ValueError(f"bad render_mode {render_mode!r}")
+    if use_fx_bus:
         raise NotImplementedError(
-            f"render_mode {render_mode!r} is not ported yet (ROADMAP Queue 1, item 8); use 'ola'"
+            "the fx bus (noise-shaped reverb) is not ported yet: ROADMAP Queue 1, item 9"
         )
     dev = resolve_device(device)
     total = tracks.shape[-1]
@@ -153,13 +296,22 @@ def run_diffmst(
     with record_function("run_diffmst.gate"):
         keep, gains, norm_analysis = _gate(analysis_tracks, sample_rate)
 
+    # Window counts round up to a multiple of the group: the extra windows
+    # are silence and are trimmed.
     group_bs = _RENDER_BS
-    hop = analysis_len // 2
-    n_windows = -(-total // hop)
-    n_windows = -(-n_windows // group_bs) * group_bs
+    if render_mode == "streaming":
+        block_len, context_len = analysis_len // 2, analysis_len // 4
+        n_blocks = -(-total // block_len)
+        n_blocks = -(-n_blocks // group_bs) * group_bs
+        pad_total, offset = context_len + n_blocks * block_len, context_len
+    else:
+        hop = analysis_len // 2
+        n_windows = -(-total // hop)
+        n_windows = -(-n_windows // group_bs) * group_bs
+        pad_total, offset = (n_windows + 1) * hop, 0
     with record_function("run_diffmst.upload"):
-        tracks_dev = torch.zeros(n_all, (n_windows + 1) * hop, device=dev)
-        tracks_dev[:, :total] = torch.as_tensor(np.asarray(tracks[0], np.float32)).to(dev)
+        tracks_dev = torch.zeros(n_all, pad_total, device=dev)
+        tracks_dev[:, offset : offset + total] = torch.as_tensor(np.asarray(tracks[0], np.float32)).to(dev)
         gains_dev = torch.from_numpy(gains).to(dev)
         ref_dev = torch.as_tensor(np.asarray(analysis_ref, np.float32)).to(dev)
 
@@ -167,7 +319,8 @@ def run_diffmst(
         # one model call on the analysis windows of the kept tracks
         if total >= analysis_len:
             keep_dev = torch.tensor(keep, device=dev)
-            seg = tracks_dev[keep_dev, track_start_idx : track_start_idx + analysis_len]
+            start = offset + track_start_idx
+            seg = tracks_dev[keep_dev, start : start + analysis_len]
             analysis_dev = (seg * gains_dev[keep_dev, None])[None]
         else:  # a short song: the model sees the whole (shorter) song
             analysis_dev = torch.from_numpy(np.stack(norm_analysis)[None].astype(np.float32)).to(dev)
@@ -177,12 +330,20 @@ def run_diffmst(
         tp_full[0, keep] = tp[0].float()
 
     with record_function("run_diffmst.render"):
-        mix = _device_ola(
-            mix_console, use_fx_bus, tracks_dev, gains_dev, tp_full, fp, mp,
-            n_windows, analysis_len, group_bs,
-        )
+        if render_mode == "streaming":
+            mix = _device_overlap_save(
+                mix_console, use_fx_bus, tracks_dev, gains_dev, tp_full, fp, mp,
+                n_blocks, block_len, context_len, group_bs,
+            )
+        else:
+            mix = _device_ola(
+                mix_console, use_fx_bus, tracks_dev, gains_dev, tp_full, fp, mp,
+                n_windows, analysis_len, group_bs,
+            )
     with record_function("run_diffmst.download"):
-        if output_format == "pcm16":
+        if return_device:
+            pred_mix = mix[None, :, :total]
+        elif output_format == "pcm16":
             pred_mix = _pcm16_trim(mix, total).cpu().numpy()[None]
         else:
             pred_mix = mix[:, :total].cpu().numpy()[None]

@@ -1,7 +1,7 @@
 """How far the float32 JAX package and the port are from float64, on the CPU.
 
 Run from the repository root: ``JAX_PLATFORMS=cpu python tests/port_precision_probe.py``.
-It prints three measurements (not a test; pytest does not collect it):
+It prints five measurements (not a test; pytest does not collect it):
 
   1. the compressor's one-pole smoother at 8 x 262,144 (the master bus at
      the serving window), gains of tens of dB and attack times of 1-250 ms:
@@ -11,7 +11,18 @@ It prints three measurements (not a test; pytest does not collect it):
      the Pallas ``onepole_core`` in interpret mode on a 5 x 3,001 corner;
   2. one loud console window (2 tracks x 16,384, faders +22/+14/+31.5 dB):
      the JAX console jitted and eager, and the port's float32 console,
-     against the port's console run in float64.
+     against the port's console run in float64;
+  3. the decoupled compressor's release min-scan at 8 x 262,144 on gains of
+     tens of dB with releases of 10-250 ms: JAX's float32 associative scan
+     (``ops/compressor.py::_release_min_scan``) and the port's
+     ``release_min_scan``, each against the recurrence run sample by sample
+     in float64;
+  4. the causal EQ's biquad cascade at 4 x 262,144 with the console's
+     lowest, sharpest low shelf (20 Hz, Q 5, +12 dB) and the other five
+     bands drawn over the console's ranges: JAX's float32 ``sosfilt_scan``
+     (``ops/iir.py``) and the port's ``sosfilt``, each against
+     ``scipy.signal.sosfilt`` in float64, relative to the peak; and the same
+     with every pole radius within 0.994.
 """
 
 import os
@@ -28,9 +39,12 @@ import torch  # noqa: E402
 
 from diffmst_tpu.console import AdvancedMixConsole as JaxAdvanced  # noqa: E402
 from diffmst_tpu.kernels.scan1p import onepole_core as jax_onepole_core  # noqa: E402
-from diffmst_tpu.ops.compressor import _smooth_scan  # noqa: E402
+from diffmst_tpu.ops.compressor import _release_min_scan, _smooth_scan  # noqa: E402
+from diffmst_tpu.ops.iir import sosfilt_scan  # noqa: E402
 from diffmst_torch.console import AdvancedMixConsole  # noqa: E402
-from diffmst_torch.kernels.scan1p import onepole_core  # noqa: E402
+from diffmst_torch.kernels.iir_fused import sosfilt  # noqa: E402
+from diffmst_torch.kernels.scan1p import onepole_core, release_min_scan  # noqa: E402
+from diffmst_torch.ops.eq import _eq_sos  # noqa: E402
 
 SR = 44100.0
 
@@ -75,6 +89,53 @@ def console():
           f" off float64; jitted - eager JAX {np.abs(jit - eager).max():.3g}")
 
 
+def release():
+    rng = np.random.default_rng(0)
+    rows, t = 8, 262144
+    g = rng.uniform(-40.0, 0.0, size=(rows, t)).astype(np.float32)
+    ms = rng.uniform(10.0, 250.0, size=rows)
+    a = np.exp(-np.log(9.0) / (SR * ms / 1e3)).astype(np.float32)
+    a64, state, y64 = a.astype(np.float64), np.zeros(rows), np.empty((rows, t))
+    for n in range(t):
+        state = np.minimum(g[:, n], a64 * state + (1.0 - a64) * g[:, n])
+        y64[:, n] = state
+    y_jax = np.asarray(jax.jit(_release_min_scan)(jnp.asarray(g), jnp.asarray(a)))
+    y_port = release_min_scan(torch.from_numpy(g), torch.from_numpy(a)).numpy()
+    print(f"release min-scan 8x262144, dB gains: JAX float32 scan {np.abs(y_jax - y64).max():.3g} dB,"
+          f" port {np.abs(y_port - y64).max():.3g} dB off float64")
+
+
+def causal_eq():
+    from diffmst_torch.console.ranges import advanced_param_ranges
+
+    rng = np.random.default_rng(0)
+    rows, t = 4, 262144
+    rngs = advanced_param_ranges(SR)["parametric_eq"]
+    x = rng.normal(size=(rows, t)).astype(np.float32)
+    for label, moderate in (("20 Hz, Q 5 low shelf", False), ("pole radius <= 0.994", True)):
+        p = {k: rng.uniform(*rngs[k], size=rows) for k in rngs}
+        if moderate:
+            for band in ("low_shelf", "band0"):
+                p[f"{band}_cutoff_freq"] = rng.uniform(400.0, 2000.0, size=rows)
+                p[f"{band}_q_factor"] = rng.uniform(0.3, 1.0, size=rows)
+        else:
+            p["low_shelf_cutoff_freq"][:] = 20.0
+            p["low_shelf_q_factor"][:] = 5.0
+            p["low_shelf_gain_db"][:] = 12.0
+        b, a = (v.float().numpy() for v in _eq_sos(SR, **{k: torch.from_numpy(v) for k, v in p.items()}))
+        radius = max(np.abs(np.roots(a[i, s])).max() for i in range(rows) for s in range(6))
+        ref = np.stack([scipy.signal.sosfilt(np.concatenate([b[i], a[i]], -1).astype(np.float64),
+                                             x[i].astype(np.float64)) for i in range(rows)])
+        y_jax = np.asarray(jax.jit(sosfilt_scan)(*map(jnp.asarray, (x, b, a))))
+        y_port = sosfilt(*map(torch.from_numpy, (x, b, a))).numpy()
+        peak = np.abs(ref).max()
+        print(f"biquad cascade 4x262144, {label} (largest pole radius {radius:.6f}), peak {peak:.4g}:"
+              f" JAX float32 sosfilt_scan {np.abs(y_jax - ref).max() / peak:.3g},"
+              f" port {np.abs(y_port - ref).max() / peak:.3g} of the peak off scipy float64")
+
+
 if __name__ == "__main__":
     smoother()
     console()
+    release()
+    causal_eq()

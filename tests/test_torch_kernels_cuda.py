@@ -7,18 +7,18 @@ which the card's machine does not have):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Shapes are ragged on purpose: T below, at and just past one 2,048-sample
-block, and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 (both
-versions compose in float64 and round once) and 1e-5 on K2's audio. The
-backward kernels are held against their plain versions at 1e-5 of each
-output's max-abs, and at 1e-4 on the per-row sums (both add in float64, in
-another order).
+block, and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 and
+K3 (both versions compose in float64 and round once), 1e-5 on K2's audio
+and 1e-5 of K5's peak. The backward kernels are held against their plain
+versions at 1e-5 of each output's max-abs, and at 1e-4 on the per-row sums
+(both add in float64, in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from diffmst_torch.kernels import comp_fused, scan1p
+from diffmst_torch.kernels import comp_fused, iir_fused, scan1p
 
 pytestmark = pytest.mark.cuda
 
@@ -160,6 +160,145 @@ def test_autograd_runs_the_backward_kernels(card):
             assert _rel(g_card, g_cpu) <= 1e-4, smoother
 
 
+def _gains_db(gen, rows, t, dev):
+    """Compressor gains in dB (<= 0, some rows starting at 0 dB, as below
+    the threshold) with release coefficients of 10-250 ms."""
+    g = -30.0 * torch.rand(rows, t, generator=gen) ** 2
+    g[::2, : t // 3] = 0.0
+    ms = 10.0 + 240.0 * torch.rand(rows, generator=gen)
+    return g.to(dev), torch.exp(-np.log(9.0) / (SR * ms / 1e3)).to(dev)
+
+
+@pytest.mark.parametrize("rows,t", [(1, 1), (3, 100), (5, 2047), (2, 2048), (7, 2049), (33, 10000)])
+def test_release_min_scan_kernel_matches_plain(card, rows, t):
+    gen = torch.Generator().manual_seed(rows * t + 1)
+    g, a = _gains_db(gen, rows, t, card)
+    before = scan1p.release_min_scan.launches
+    y = scan1p.release_min_scan(g, a)
+    torch.cuda.synchronize()
+    assert scan1p.release_min_scan.launches == before + 1
+    torch.testing.assert_close(y, scan1p.release_min_scan_plain(g, a), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [1, 2047, 4097, 10001])
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_release_min_scan_backward_kernel_matches_plain(card, rows, t):
+    gen = torch.Generator().manual_seed(rows * t + 2)
+    g, a = _gains_db(gen, rows, t, card)
+    y = scan1p.release_min_scan_plain(g, a)
+    dy = torch.randn(rows, t, generator=gen).to(card)
+    before = scan1p.release_min_scan_backward.launches
+    dg, da = scan1p.release_min_scan_backward(dy, g, a, y)
+    torch.cuda.synchronize()
+    assert scan1p.release_min_scan_backward.launches == before + 1
+    dg_p, da_p = scan1p.release_min_scan_backward_plain(dy, g, a, y)
+    assert _rel(dg, dg_p) <= 1e-5
+    assert _rel(da, da_p) <= 1e-4
+
+
+def _sections(gen, rows, dev, low_shelf_hz=None):
+    """(B, 6, 3) sections of the console's EQ, parameters drawn over its
+    ranges; ``low_shelf_hz`` pins the low shelf's cutoff, with Q 5."""
+    from diffmst_torch.console.ranges import advanced_param_ranges
+    from diffmst_torch.ops.eq import _eq_sos
+
+    rngs = advanced_param_ranges(SR)["parametric_eq"]
+    p = {k: lo + (hi - lo) * torch.rand(rows, generator=gen, dtype=torch.float64)
+         for k, (lo, hi) in rngs.items()}
+    if low_shelf_hz is not None:
+        p["low_shelf_cutoff_freq"] = torch.full((rows,), low_shelf_hz, dtype=torch.float64)
+        p["low_shelf_q_factor"] = torch.full((rows,), 5.0, dtype=torch.float64)
+        p["low_shelf_gain_db"] = torch.full((rows,), 12.0, dtype=torch.float64)
+    b, a = _eq_sos(SR, **p)
+    return b.float().to(dev), a.float().to(dev)
+
+
+@pytest.mark.parametrize("rows,t", [(1, 1), (3, 100), (5, 2047), (2, 2048), (7, 2049), (33, 10000)])
+def test_sosfilt_kernel_matches_plain(card, rows, t):
+    gen = torch.Generator().manual_seed(rows * t + 3)
+    b, a = _sections(gen, rows, card)
+    x = torch.randn(rows, t, generator=gen).to(card)
+    before = iir_fused.sosfilt.launches
+    y = iir_fused.sosfilt(x, b, a)
+    torch.cuda.synchronize()
+    assert iir_fused.sosfilt.launches == before + 1
+    assert _rel(y, iir_fused.sosfilt_plain(x, b, a)) <= 1e-5
+
+
+def test_sosfilt_kernel_matches_scipy_at_a_20hz_shelf(card):
+    import scipy.signal
+
+    gen = torch.Generator().manual_seed(5)
+    b, a = _sections(gen, 4, card, low_shelf_hz=20.0)
+    x = torch.randn(4, 30000, generator=gen).to(card)
+    y = iir_fused.sosfilt(x, b, a).cpu().double().numpy()
+    sos = torch.cat([b, a], dim=-1).cpu().double().numpy()
+    ref = np.stack([scipy.signal.sosfilt(sos[i], x[i].cpu().double().numpy()) for i in range(4)])
+    assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 2047, 4097, 10001])
+@pytest.mark.parametrize("rows", [1, 8, 32])
+def test_sosfilt_backward_kernel_matches_plain(card, rows, t):
+    gen = torch.Generator().manual_seed(rows * t + 4)
+    b, a = _sections(gen, rows, card, low_shelf_hz=20.0 if rows > 1 else None)
+    coef = iir_fused._coef_rows(b, a)
+    x = torch.randn(rows, t, generator=gen).to(card)
+    y, stages = iir_fused._forward_plain(x, coef)
+    dy = torch.randn(rows, t, generator=gen).to(card)
+    before = iir_fused.sosfilt_backward.launches
+    dx, dcoef = iir_fused.sosfilt_backward(x, stages, y, coef, dy)
+    torch.cuda.synchronize()
+    assert iir_fused.sosfilt_backward.launches == before + 1
+    dx_p, dcoef_p = iir_fused.sosfilt_backward_plain(x, stages, y, coef, dy)
+    assert _rel(dx, dx_p) <= 1e-5
+    for s in range(coef.shape[0]):
+        for k in range(coef.shape[1]):
+            assert _rel(dcoef[s, k], dcoef_p[s, k]) <= 1e-4, (s, k)
+
+
+def test_sosfilt_forward_stages_match_plain(card):
+    """The stages a differentiated forward keeps are the plain sections' outputs."""
+    gen = torch.Generator().manual_seed(6)
+    b, a = _sections(gen, 8, card)
+    coef = iir_fused._coef_rows(b, a)
+    x = torch.randn(8, 5000, generator=gen).to(card)
+    y, stages = iir_fused._launch(x, coef)
+    y_p, stages_p = iir_fused._forward_plain(x, coef)
+    torch.cuda.synchronize()
+    assert stages.shape == (5, 8, 5000)
+    assert _rel(stages, stages_p) <= 1e-5 and _rel(y, y_p) <= 1e-5
+
+
+def test_autograd_runs_the_causal_backward_kernels(card):
+    """Gradients through the decoupled compressor and the causal EQ on the
+    card launch the K3, K1 and K5 backward kernels once each, and match the
+    plain versions' gradients on the CPU."""
+    from diffmst_torch import ops
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 2, 6000, generator=gen) * 0.3
+    comp = {k: torch.full((2,), v) for k, v in dict(threshold_db=-24.0, ratio=4.0, attack_ms=10.0,
+                                                       release_ms=100.0, knee_db=6.0,
+                                                       makeup_gain_db=2.0).items()}
+    b, a = _sections(gen, 2, "cpu")
+    w = torch.randn(2, 2, 6000, generator=gen)
+    counters = (scan1p.release_min_scan_backward, scan1p.onepole_core_backward, iir_fused.sosfilt_backward)
+    grads = {}
+    for dev in ("cpu", card):
+        leaves = [t.detach().to(dev).clone().requires_grad_() for t in (x, *comp.values())]
+        before = [c.launches for c in counters]
+        y = ops.compressor(leaves[0], SR, *leaves[1:], lookahead_samples=1024, smoother="decoupled")
+        flat = y.reshape(4, 6000).contiguous()
+        z = iir_fused.sosfilt(flat, b.repeat_interleave(2, 0).to(dev), a.repeat_interleave(2, 0).to(dev))
+        (z.reshape(2, 2, 6000) * w.to(dev)).sum().backward()
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        assert launched == ([0, 0, 0] if dev == "cpu" else [1, 1, 1]), (dev, launched)
+        grads[str(dev)] = [leaf.grad.cpu() for leaf in leaves]
+    for g_card, g_cpu in zip(grads[str(card)], grads["cpu"]):
+        assert _rel(g_card, g_cpu) <= 1e-4
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     b = torch.zeros(2, 64, device=card)
     with pytest.raises(TypeError):
@@ -187,3 +326,13 @@ def test_kernels_refuse_what_they_do_not_take(card):
         comp_fused.compressor_fused_backward(x, x, params[:, :1].contiguous(), x, x)
     with pytest.raises(ValueError):
         comp_fused.compressor_fused_backward(x, x, params, x[:, :32].contiguous(), x)
+    # K3 and K5
+    with pytest.raises(ValueError):
+        scan1p.release_min_scan(b, torch.zeros(3, device=card))
+    with pytest.raises(TypeError):
+        scan1p.release_min_scan_backward(b, b, a.double(), b)
+    coef = torch.zeros(6, 5, 2, device=card)
+    with pytest.raises(ValueError):
+        iir_fused.sosfilt_backward(x, torch.zeros(4, 2, 64, device=card), x, coef, x)  # 5 stages
+    with pytest.raises(ValueError):
+        iir_fused._launch(x, coef[:, :4].contiguous())
