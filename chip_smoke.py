@@ -14,7 +14,9 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      K2's, with the envelope that K2's forward writes for it) at the
      training shapes, against their plain PyTorch versions, with times and
      bounds; K5 also against scipy.signal.sosfilt in float64 at a 20 Hz
-     high-Q low shelf;
+     high-Q low shelf, its time split by its three kernels (chunk, carry,
+     apply; CUDA events), and the stages it writes for its backward
+     against the plain version's;
   4. reference: a small song rendered on the card and on the CPU (the
      kernels' plain versions) with the same weights;
   5. serving: three 60 s, 8-track requests through ``run_diffmst`` with the
@@ -422,6 +424,13 @@ def phase_kernels(form: str):
                lambda: iir_fused.sosfilt(x, b, a), lambda: iir_fused.sosfilt_plain(x, b, a),
                n * 8 + rows * 120, 54 * n, iir_fused.sosfilt.launches, rows == 32, rel,
                flop_rate=FP64_RATE)
+        split = sosfilt_passes(x, iir_fused._coef_rows(b, a), flush)
+        line(f"[kernels] sosfilt {rows}x{WINDOW} by pass (CUDA events, median of {REPEATS}):"
+             + ", ".join(f" {k} {v:.4f} ms" for k, v in split.items()))
+        if rows == 32:
+            stats["sosfilt"]["pass_ms"] = split
+    line("[kernels] sosfilt moves 12 bytes a sample (x read twice, y written; 32 with the five"
+         " stages a differentiated forward writes) in three launches; the bound counts 8")
 
     # K5 at the console's lowest, sharpest low shelf, against scipy in float64
     import scipy.signal
@@ -445,6 +454,15 @@ def phase_kernels(form: str):
     coef = iir_fused._coef_rows(b, a)
     x = audio(32)[:, :HALF].contiguous()
     y, stages = iir_fused._launch(x, coef)
+    y_p, stages_p = iir_fused._forward_plain(x, coef)
+    rel = {"y": rel_err(y, y_p), "stages": rel_err(stages, stages_p)}
+    require(stages.shape == (5, 32, HALF), f"K5 keeps five stages ({tuple(stages.shape)})")
+    require(max(rel.values()) <= 1e-5, f"K5's stages at 32x{HALF} agree with the plain version's ({rel})")
+    ms = time_ms(lambda: iir_fused._launch(x, coef), flush)
+    line(f"[kernels] sosfilt 32x{HALF} with its five stages: {ms:.4f} ms, max relative error "
+         + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+    stats["sosfilt"]["stages_rel_err"] = rel["stages"]
+    stats["sosfilt"]["ms_with_stages_32x131072"] = ms
     dy = torch.randn(32, HALF, device=dev, generator=gen)
     bwd.launches = 0
     dx, dcoef = bwd(x, stages, y, coef, dy)
@@ -465,6 +483,27 @@ def phase_kernels(form: str):
            lambda: iir_fused.sosfilt_backward_plain(x, stages, y, coef, dy),
            n * 36 + 32 * 240, 6 * 23 * n, bwd.launches, True, rel, flop_rate=FP64_RATE)
     return stats
+
+
+def sosfilt_passes(x, coef, flush) -> dict:
+    """Device ms of each of K5's three forward kernels (chunk, carry, apply),
+    the median over REPEATS calls without stages, by CUDA events that the
+    call records between its launches, the L2 cache overwritten before each
+    call."""
+    from diffmst_torch.kernels import iir_fused
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for e in events:
+        e.record()  # creates the CUDA event
+    times = []
+    for _ in range(REPEATS + 1):
+        flush.zero_()
+        torch.cuda._sleep(20_000_000)  # the three launches are enqueued before the card reaches them
+        iir_fused._launch(x, coef, keep_stages=False, events=events)
+        events[-1].synchronize()
+        times.append([events[k].elapsed_time(events[k + 1]) for k in range(3)])
+    med = np.median(np.array(times[1:]), axis=0)
+    return {k: float(v) for k, v in zip(("chunk", "carry", "apply"), med)}
 
 
 def eq_sections(rows: int, gen: torch.Generator, low_shelf_hz: float | None = None):
@@ -1073,7 +1112,9 @@ def main() -> int:
         entry("K3-bwd", "release_min_scan_backward", scan_cu,
               "diffmst_tpu/kernels/scan1p.py:294 (release_min_scan VJP, :294-297)"),
         entry("K5", "sosfilt", iir_cu,
-              "diffmst_tpu/kernels/iir_fused.py:128 (_core:120, sosfilt_pallas:144)"),
+              "diffmst_tpu/kernels/iir_fused.py:128 (_core:120, sosfilt_pallas:144)",
+              pass_ms=stats["sosfilt"]["pass_ms"], stages_rel_err=stats["sosfilt"]["stages_rel_err"],
+              ms_with_stages_32x131072=stats["sosfilt"]["ms_with_stages_32x131072"]),
         entry("K5-bwd", "sosfilt_backward", iir_cu,
               "diffmst_tpu/kernels/iir_fused.py:167 (sosfilt_pallas VJP, :167-170)"),
     ]

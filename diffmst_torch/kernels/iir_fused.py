@@ -13,13 +13,20 @@ loaded with ctypes. Bound on the card: memory. The least traffic is read x
 arithmetic, 9 float64 operations a sample and section (54 in all), takes
 13 us at the card's 34 TFLOP/s. The Pallas kernel kept the cascade in
 VMEM, one pass over HBM.
-This first version runs the three-pass chunked scan (``csrc/
-scan_common.cuh``) once per section over 2x2 affine maps composed in
-float64, each section's output written in float32 (the Pallas kernel also
-rounds between sections): about 20 bytes a sample a section, 0.82 ms at
-32 x 262,144 on an NVIDIA H100 80GB HBM3 at 700 W, 41 times the bound
-(``chip_smoke.py``; PERF.md). A float32 scan is wrong by O(1) at the
-console's 20 Hz high-Q low shelf (ops/iir.py); float64 holds it.
+The kernel treats the S sections of a row as one linear time-invariant
+system on the 2S-vector of their TDF-II states and takes three launches
+for all of them: a chunk pass runs the cascade over each 4,096-sample
+chunk from a zero state and writes the chunk's end state; a carry pass
+runs each row's chunks in order, carry[c+1] = A^4096 carry[c] + end[c];
+an apply pass reruns the cascade from each chunk's carry and writes y
+(and, when asked, the stages). Inside a chunk each section is a block
+scan that carries 2-vectors only, since the section's matrix M is
+constant along the row and the map of L samples is M^L. It moves 12 bytes
+a sample (x read twice, y written), 32 with the five stages, and composes
+in float64, each section's output rounded to float32 as the Pallas kernel
+rounds between sections. A float32 scan is wrong by O(1) at the console's
+20 Hz high-Q low shelf (ops/iir.py); float64 holds it. Times: PERF.md
+(``chip_smoke.py`` [kernels]).
 
 The backward, ``sosfilt_backward``, replaces the VJP at
 iir_fused.py:167-170, which differentiated the XLA scan ``sosfilt_scan``.
@@ -31,17 +38,17 @@ deterministically, with w[n] = dy[n] - a1 w[n+1] - a2 w[n+2]. w grows like
 1/(1-r)^2 at a pole of radius r; du taken from it as b0 w[n] + b1 w[n+1] +
 b2 w[n+2] would cancel that growth and lose digits (3.8e-5 of du's peak at
 the console's 20 Hz shelf, r = 0.9998, in float64), so each section takes two
-scans, one for du and one for the sums. It needs every
-section's input: the forward writes each section's output anyway, and a
-forward whose inputs need gradients keeps them (``stages``, S - 1 rows of
+scans, one for du and one for the sums. It needs every section's input: a
+forward whose inputs need gradients writes them (``stages``, S - 1 rows of
 float32 signals: 5 x 16.8 MB for the training step's 32 track rows of
-131,072 samples) rather than the backward recomputing them. The gradient
-of a0 is 0, as in JAX, where it is unused.
+131,072 samples) rather than the backward recomputing them; a forward that
+is not differentiated writes none. The gradient of a0 is 0, as in JAX,
+where it is unused.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (``ops/iir.py``
 and ``sosfilt_backward_plain``); on a CUDA tensor it launches the kernel or
 raises. A wrapper call counts as one launch, whatever the number of CUDA
-kernels it starts (four a section forward, eight backward).
+kernels it starts (three forward, eight a section backward).
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from diffmst_torch.ops.iir import biquad_scan, lti2_scan
 __all__ = ["sosfilt", "sosfilt_plain", "sosfilt_backward", "sosfilt_backward_plain"]
 
 _COEFS = 5  # per section and row: b0, b1, b2, a1, a2
+_MAX_SECTIONS = 16  # the forward kernel's limit: the 2S-vector fits a warp
 
 
 def _coef_rows(sos_b: torch.Tensor, sos_a: torch.Tensor) -> torch.Tensor:
@@ -126,12 +134,13 @@ def sosfilt_backward_plain(x, stages, y, coef, dy):
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library("iir_fused.cu")
-    for fn in (lib.diffmst_sosfilt_scratch_bytes, lib.diffmst_sosfilt_backward_scratch_bytes):
-        fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
-        fn.restype = ctypes.c_longlong
+    lib.diffmst_sosfilt_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    lib.diffmst_sosfilt_scratch_bytes.restype = ctypes.c_longlong
+    lib.diffmst_sosfilt_backward_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.diffmst_sosfilt_backward_scratch_bytes.restype = ctypes.c_longlong
     lib.diffmst_sosfilt.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.diffmst_sosfilt.restype = ctypes.c_int
     lib.diffmst_sosfilt_backward.argtypes = [
@@ -176,21 +185,29 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _launch(x: torch.Tensor, coef: torch.Tensor):
-    """(y, stages) of the cascade on the card."""
+def _launch(x: torch.Tensor, coef: torch.Tensor, *, keep_stages: bool = True, events=None):
+    """(y, stages) of the cascade on the card; with ``keep_stages`` False the
+    kernel writes no stages and ``stages`` is empty. ``events``: four
+    recorded ``torch.cuda.Event``s with timing, which the call records again
+    before its chunk pass and after each of its three passes."""
     _check(x, coef)
     n_sec = coef.shape[0]
+    if n_sec > _MAX_SECTIONS:
+        raise ValueError(f"the sosfilt kernel takes at most {_MAX_SECTIONS} sections, got {n_sec}")
     y = torch.empty_like(x)
-    stages = x.new_empty((n_sec - 1, *x.shape))
+    stages = x.new_empty((n_sec - 1 if keep_stages else 0, *x.shape))
     if x.numel() == 0:
         return y, stages
     rows, t = x.shape
     lib = _lib()
     with torch.cuda.device(x.device):
-        scratch = torch.empty(lib.diffmst_sosfilt_scratch_bytes(rows, t), dtype=torch.uint8, device=x.device)
+        scratch = torch.empty(
+            lib.diffmst_sosfilt_scratch_bytes(rows, t, n_sec), dtype=torch.uint8, device=x.device
+        )
+        marks = None if events is None else (ctypes.c_void_p * 4)(*(e.cuda_event for e in events))
         err = lib.diffmst_sosfilt(
-            x.data_ptr(), coef.data_ptr(), stages.data_ptr() if n_sec > 1 else None, y.data_ptr(),
-            scratch.data_ptr(), rows, t, n_sec, _stream(),
+            x.data_ptr(), coef.data_ptr(), stages.data_ptr() if stages.numel() else None,
+            y.data_ptr(), scratch.data_ptr(), rows, t, n_sec, _stream(), marks,
         )
     check_launch(lib, err, "sosfilt")
     sosfilt.launches += 1
@@ -226,9 +243,10 @@ class _Sosfilt(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, coef, plain: bool):
-        y, stages = _forward_plain(x, coef) if plain else _launch(x, coef)
+        differentiated = any(ctx.needs_input_grad[:2])
+        y, stages = _forward_plain(x, coef) if plain else _launch(x, coef, keep_stages=differentiated)
         ctx.plain = plain
-        if any(ctx.needs_input_grad[:2]):
+        if differentiated:
             ctx.save_for_backward(x, coef, stages, y)
         return y
 

@@ -7,7 +7,8 @@ which the card's machine does not have):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Shapes are ragged on purpose: T below, at and just past one 2,048-sample
-block, and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 and
+block (K5's forward: one 4,096-sample chunk), and row counts that fill no
+warp. Tolerances: 1e-5 in dB on K1 and
 K3 (both versions compose in float64 and round once), 1e-5 on K2's audio
 and 1e-5 of K5's peak. The backward kernels are held against their plain
 versions at 1e-5 of each output's max-abs, and at 1e-4 on the per-row sums
@@ -213,10 +214,20 @@ def _sections(gen, rows, dev, low_shelf_hz=None):
     return b.float().to(dev), a.float().to(dev)
 
 
-@pytest.mark.parametrize("rows,t", [(1, 1), (3, 100), (5, 2047), (2, 2048), (7, 2049), (33, 10000)])
-def test_sosfilt_kernel_matches_plain(card, rows, t):
+_K5_CHUNK = 4096  # samples a block of K5's forward (csrc/iir_fused.cu, kChunk)
+
+
+@pytest.mark.parametrize(
+    "rows,t,sections",
+    [(1, 1, 6), (3, 100, 6), (5, 2047, 6), (2, 2048, 6), (7, 2049, 6), (33, 10000, 6),
+     (1, _K5_CHUNK - 1, 6), (1, _K5_CHUNK, 6), (1, _K5_CHUNK + 1, 6), (1, 3 * _K5_CHUNK + 17, 6),
+     (3, 3 * _K5_CHUNK + 17, 1), (3, 3 * _K5_CHUNK + 17, 9)],
+)
+def test_sosfilt_kernel_matches_plain(card, rows, t, sections):
     gen = torch.Generator().manual_seed(rows * t + 3)
     b, a = _sections(gen, rows, card)
+    # the EQ's six sections, repeated for more (a wider carry)
+    b, a = (v.repeat(1, 2, 1)[:, :sections].contiguous() for v in (b, a))
     x = torch.randn(rows, t, generator=gen).to(card)
     before = iir_fused.sosfilt.launches
     y = iir_fused.sosfilt(x, b, a)
@@ -225,12 +236,40 @@ def test_sosfilt_kernel_matches_plain(card, rows, t):
     assert _rel(y, iir_fused.sosfilt_plain(x, b, a)) <= 1e-5
 
 
+def test_sosfilt_without_stages_gives_the_same_output(card):
+    """A forward that keeps no stages writes none and gives the same y."""
+    gen = torch.Generator().manual_seed(8)
+    b, a = _sections(gen, 4, card)
+    coef = iir_fused._coef_rows(b, a)
+    x = torch.randn(4, 2 * _K5_CHUNK + 5, generator=gen).to(card)
+    y, stages = iir_fused._launch(x, coef)
+    y_bare, none = iir_fused._launch(x, coef, keep_stages=False)
+    torch.cuda.synchronize()
+    assert stages.shape == (5, *x.shape) and none.numel() == 0
+    assert torch.equal(y, y_bare)
+
+
 def test_sosfilt_kernel_matches_scipy_at_a_20hz_shelf(card):
     import scipy.signal
 
     gen = torch.Generator().manual_seed(5)
     b, a = _sections(gen, 4, card, low_shelf_hz=20.0)
     x = torch.randn(4, 30000, generator=gen).to(card)
+    y = iir_fused.sosfilt(x, b, a).cpu().double().numpy()
+    sos = torch.cat([b, a], dim=-1).cpu().double().numpy()
+    ref = np.stack([scipy.signal.sosfilt(sos[i], x[i].cpu().double().numpy()) for i in range(4)])
+    assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_sosfilt_carries_hold_over_256_chunks_at_a_20hz_shelf(card):
+    """The chunk carries of K5's forward do not pile up errors over a long
+    row: 4 x 1,048,576 samples at the 20 Hz, Q 5 shelf against scipy in
+    float64."""
+    import scipy.signal
+
+    gen = torch.Generator().manual_seed(9)
+    b, a = _sections(gen, 4, card, low_shelf_hz=20.0)
+    x = torch.randn(4, 2**20, generator=gen).to(card)
     y = iir_fused.sosfilt(x, b, a).cpu().double().numpy()
     sos = torch.cat([b, a], dim=-1).cpu().double().numpy()
     ref = np.stack([scipy.signal.sosfilt(sos[i], x[i].cpu().double().numpy()) for i in range(4)])
@@ -262,11 +301,11 @@ def test_sosfilt_forward_stages_match_plain(card):
     gen = torch.Generator().manual_seed(6)
     b, a = _sections(gen, 8, card)
     coef = iir_fused._coef_rows(b, a)
-    x = torch.randn(8, 5000, generator=gen).to(card)
+    x = torch.randn(8, 3 * _K5_CHUNK + 17, generator=gen).to(card)
     y, stages = iir_fused._launch(x, coef)
     y_p, stages_p = iir_fused._forward_plain(x, coef)
     torch.cuda.synchronize()
-    assert stages.shape == (5, 8, 5000)
+    assert stages.shape == (5, 8, 3 * _K5_CHUNK + 17)
     assert _rel(stages, stages_p) <= 1e-5 and _rel(y, y_p) <= 1e-5
 
 
@@ -336,3 +375,5 @@ def test_kernels_refuse_what_they_do_not_take(card):
         iir_fused.sosfilt_backward(x, torch.zeros(4, 2, 64, device=card), x, coef, x)  # 5 stages
     with pytest.raises(ValueError):
         iir_fused._launch(x, coef[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        iir_fused._launch(x, torch.zeros(17, 5, 2, device=card))  # over 16 sections
