@@ -16,7 +16,9 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      bounds; K5 also against scipy.signal.sosfilt in float64 at a 20 Hz
      high-Q low shelf, its time split by its three kernels (chunk, carry,
      apply; CUDA events), and the stages it writes for its backward
-     against the plain version's;
+     against the plain version's; K5's backward at the track and master
+     EQs' shapes, its time split by its four kernels (chunk, carry, apply,
+     reduce);
   4. reference: a small song rendered on the card and on the CPU (the
      kernels' plain versions) with the same weights;
   5. serving: three 60 s, 8-track requests through ``run_diffmst`` with the
@@ -448,62 +450,88 @@ def phase_kernels(form: str):
     require(err <= 1e-4, f"K5 agrees with scipy at a 20 Hz shelf ({err})")
     stats["sosfilt"]["scipy_rel_err"] = err
 
-    # K5's backward at the training shapes: the track EQ's 32 rows
+    # K5's backward at the training shapes: the track EQ's 32 rows and the
+    # master EQ's 8, on the stages of the kernel's own forward
     bwd = iir_fused.sosfilt_backward
-    b, a = eq_sections(32, gen)
-    coef = iir_fused._coef_rows(b, a)
-    x = audio(32)[:, :HALF].contiguous()
-    y, stages = iir_fused._launch(x, coef)
-    y_p, stages_p = iir_fused._forward_plain(x, coef)
-    rel = {"y": rel_err(y, y_p), "stages": rel_err(stages, stages_p)}
-    require(stages.shape == (5, 32, HALF), f"K5 keeps five stages ({tuple(stages.shape)})")
-    require(max(rel.values()) <= 1e-5, f"K5's stages at 32x{HALF} agree with the plain version's ({rel})")
-    ms = time_ms(lambda: iir_fused._launch(x, coef), flush)
-    line(f"[kernels] sosfilt 32x{HALF} with its five stages: {ms:.4f} ms, max relative error "
-         + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
-    stats["sosfilt"]["stages_rel_err"] = rel["stages"]
-    stats["sosfilt"]["ms_with_stages_32x131072"] = ms
-    dy = torch.randn(32, HALF, device=dev, generator=gen)
-    bwd.launches = 0
-    dx, dcoef = bwd(x, stages, y, coef, dy)
-    torch.cuda.synchronize()
-    dx_p, dcoef_p = iir_fused.sosfilt_backward_plain(x, stages, y, coef, dy)
-    rel = {"dx": rel_err(dx, dx_p), "dcoef": max(rel_err(dcoef[s, k], dcoef_p[s, k])
-                                                for s in range(6) for k in range(5))}
-    require(bool(torch.isfinite(dx).all() and torch.isfinite(dcoef).all()), "K5 backward finite")
-    require(bwd.launches == 1, f"one K5 backward launch ({bwd.launches})")
-    require(rel["dx"] <= 1e-5, f"K5 backward dx agrees with its plain version ({rel['dx']})")
-    require(rel["dcoef"] <= 1e-4, f"K5 backward's 30 sums a row agree with their plain versions ({rel})")
-    n = 32 * HALF
-    # read x, the five stages, y and dy, write dx (36 bytes a sample), 30
-    # coefficients and 30 sums a row; per sample and section the reversed
-    # filter (9), w's recurrence (4) and five sums (10) in float64
-    record("sosfilt_backward", f"32x{HALF}", abs_err(((dx, dx_p),)), None,
-           lambda: bwd(x, stages, y, coef, dy),
-           lambda: iir_fused.sosfilt_backward_plain(x, stages, y, coef, dy),
-           n * 36 + 32 * 240, 6 * 23 * n, bwd.launches, True, rel, flop_rate=FP64_RATE)
+    for rows in (32, 8):
+        b, a = eq_sections(rows, gen)
+        coef = iir_fused._coef_rows(b, a)
+        x = audio(rows)[:, :HALF].contiguous()
+        y, stages = iir_fused._launch(x, coef)
+        if rows == 32:
+            y_p, stages_p = iir_fused._forward_plain(x, coef)
+            rel = {"y": rel_err(y, y_p), "stages": rel_err(stages, stages_p)}
+            require(stages.shape == (5, 32, HALF), f"K5 keeps five stages ({tuple(stages.shape)})")
+            require(max(rel.values()) <= 1e-5,
+                    f"K5's stages at 32x{HALF} agree with the plain version's ({rel})")
+            ms = time_ms(lambda: iir_fused._launch(x, coef), flush)
+            line(f"[kernels] sosfilt 32x{HALF} with its five stages: {ms:.4f} ms, max relative error "
+                 + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+            stats["sosfilt"]["stages_rel_err"] = rel["stages"]
+            stats["sosfilt"]["ms_with_stages_32x131072"] = ms
+        dy = torch.randn(rows, HALF, device=dev, generator=gen)
+        bwd.launches = 0
+        dx, dcoef = bwd(x, stages, y, coef, dy)
+        torch.cuda.synchronize()
+        dx_p, dcoef_p = iir_fused.sosfilt_backward_plain(x, stages, y, coef, dy)
+        rel = {"dx": rel_err(dx, dx_p), "dcoef": max(rel_err(dcoef[s, k], dcoef_p[s, k])
+                                                    for s in range(6) for k in range(5))}
+        require(bool(torch.isfinite(dx).all() and torch.isfinite(dcoef).all()), "K5 backward finite")
+        require(bwd.launches == 1, f"one K5 backward launch ({bwd.launches})")
+        require(rel["dx"] <= 1e-5, f"K5 backward dx agrees with its plain version ({rel['dx']})")
+        require(rel["dcoef"] <= 1e-4, f"K5 backward's 30 sums a row agree with their plain versions ({rel})")
+        n = rows * HALF
+        # read x, the five stages, y and dy, write dx (36 bytes a sample), 30
+        # coefficients and 30 sums a row; per sample and section the reversed
+        # filter (9), w's recurrence (4) and five sums (10) in float64
+        record("sosfilt_backward", f"{rows}x{HALF}", abs_err(((dx, dx_p),)), None,
+               lambda: bwd(x, stages, y, coef, dy),
+               lambda: iir_fused.sosfilt_backward_plain(x, stages, y, coef, dy),
+               n * 36 + rows * 240, 6 * 23 * n, bwd.launches, rows == 32, rel, flop_rate=FP64_RATE)
+        split = sosfilt_backward_passes(x, stages, y, coef, dy, flush)
+        line(f"[kernels] sosfilt_backward {rows}x{HALF} by pass (CUDA events, median of {REPEATS}):"
+             + ", ".join(f" {k} {v:.4f} ms" for k, v in split.items()))
+        if rows == 32:
+            stats["sosfilt_backward"]["pass_ms"] = split
+    line("[kernels] sosfilt_backward moves 40 bytes a sample (dy read twice; x, the five stages and y"
+         " once; dx written) in four launches; the bound counts 36")
     return stats
 
 
-def sosfilt_passes(x, coef, flush) -> dict:
-    """Device ms of each of K5's three forward kernels (chunk, carry, apply),
-    the median over REPEATS calls without stages, by CUDA events that the
-    call records between its launches, the L2 cache overwritten before each
-    call."""
-    from diffmst_torch.kernels import iir_fused
-
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+def pass_times(launch, names, flush) -> dict:
+    """Device ms of each of a kernel's launches, the median over REPEATS
+    calls, by CUDA events that ``launch(events)`` records before its first
+    launch and after each, the L2 cache overwritten before each call."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
     for e in events:
         e.record()  # creates the CUDA event
     times = []
     for _ in range(REPEATS + 1):
         flush.zero_()
-        torch.cuda._sleep(20_000_000)  # the three launches are enqueued before the card reaches them
-        iir_fused._launch(x, coef, keep_stages=False, events=events)
+        torch.cuda._sleep(20_000_000)  # the launches are enqueued before the card reaches them
+        launch(events)
         events[-1].synchronize()
-        times.append([events[k].elapsed_time(events[k + 1]) for k in range(3)])
+        times.append([events[k].elapsed_time(events[k + 1]) for k in range(len(names))])
     med = np.median(np.array(times[1:]), axis=0)
-    return {k: float(v) for k, v in zip(("chunk", "carry", "apply"), med)}
+    return {k: float(v) for k, v in zip(names, med)}
+
+
+def sosfilt_passes(x, coef, flush) -> dict:
+    """Device ms of each of K5's three forward kernels (chunk, carry, apply),
+    without stages."""
+    from diffmst_torch.kernels import iir_fused
+
+    return pass_times(lambda ev: iir_fused._launch(x, coef, keep_stages=False, events=ev),
+                      ("chunk", "carry", "apply"), flush)
+
+
+def sosfilt_backward_passes(x, stages, y, coef, dy, flush) -> dict:
+    """Device ms of each of K5's four backward kernels (chunk, carry, apply,
+    reduce)."""
+    from diffmst_torch.kernels import iir_fused
+
+    return pass_times(lambda ev: iir_fused._launch_backward(x, stages, y, coef, dy, events=ev),
+                      ("chunk", "carry", "apply", "reduce"), flush)
 
 
 def eq_sections(rows: int, gen: torch.Generator, low_shelf_hz: float | None = None):
@@ -1116,7 +1144,8 @@ def main() -> int:
               pass_ms=stats["sosfilt"]["pass_ms"], stages_rel_err=stats["sosfilt"]["stages_rel_err"],
               ms_with_stages_32x131072=stats["sosfilt"]["ms_with_stages_32x131072"]),
         entry("K5-bwd", "sosfilt_backward", iir_cu,
-              "diffmst_tpu/kernels/iir_fused.py:167 (sosfilt_pallas VJP, :167-170)"),
+              "diffmst_tpu/kernels/iir_fused.py:167 (sosfilt_pallas VJP, :167-170)",
+              pass_ms=stats["sosfilt_backward"]["pass_ms"]),
     ]
     for k in kernels:
         require(k["launches"] > 0 or not k["on_path"], f"{k['name']} launched on its path")

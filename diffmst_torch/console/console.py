@@ -122,12 +122,16 @@ class AdvancedMixConsole:
     master_comp_lookahead: int = 1024
     # Compressor smoother (ops/compressor.py): "auto" (= "fused", kernel K2),
     # "scan" (kernel K1), "fsm" (the reference's circular FFT smoother), or
-    # "decoupled" / "decoupled_pallas" (attack and release: K3, then K1).
+    # "decoupled" (attack and release: K3, then K1). The JAX console's
+    # Pallas names take the port's kernel for the same path: "scan_pallas"
+    # is "scan", "fused_pallas" is "fused", "decoupled_pallas" is
+    # "decoupled", and so are their "_interpret" twins.
     comp_smoother: str = "auto"
     # EQ method (ops/eq.py): the reference's frequency sampling "fs" (with
     # the input fader folded into the response), or the causal cascade
-    # "scan" / "scan_pallas" (kernel K5), which with "decoupled" makes the
-    # causal console that run_diffmst(render_mode="streaming") renders with.
+    # "scan" (kernel K5; also "scan_pallas" and "scan_pallas_interpret"),
+    # which with "decoupled" makes the causal console that
+    # run_diffmst(render_mode="streaming") renders with.
     eq_method: str = "fs"
     device: Optional[str] = None  # None: the CUDA device
 

@@ -2,9 +2,8 @@
 //
 // A row of T samples evolves as state[n] = f_n(state[n-1]) from a zero
 // state, where each f_n belongs to a family of maps that is closed under
-// composition: the scalar affine map y -> a*y + b (K1, K2, K4), the
-// min-affine map y -> min(c, a*y + d) (K3) and the 2x2 affine map
-// v -> M v + u on a two-value state (K5). Maps compose associatively, so the
+// composition: the scalar affine map y -> a*y + b (K1, K2, K4) and the
+// min-affine map y -> min(c, a*y + d) (K3). Maps compose associatively, so the
 // recurrence is a scan. The TPU kernels walked time chunks in order on one
 // core with the carry in VMEM; blocks on a GPU run in parallel and in no
 // order, so the scan here takes three passes over (rows, T) row-major data:
@@ -20,15 +19,11 @@
 //
 // A Map type provides `using State`, `static Map identity()`,
 // `static Map compose(Map first, Map then)` (apply `first`, then `then`) and
-// `State apply(State) const`; the zero state is State{}. An Op names its
-// `Map` and supplies step(row, t) -> the Map of sample t, and store(). With a scalar (double)
-// state, store(row, t, y) receives the new state rounded to float; with a
-// vector state, store(row, t, before, after) receives the states before and
-// after the step, in double. Pass 3 keeps the maps of its loads in
-// registers, so a sample's inputs are read twice in all (passes 1 and 3)
-// and its output written once; an Op whose maps are large declares
-// `static constexpr bool kRecompute = true`, and pass 3 calls step() again
-// instead (its loads then hit the L1 cache).
+// `State apply(State) const`; the zero state is State{} (a double). An Op
+// names its `Map` and supplies step(row, t) -> the Map of sample t, and
+// store(row, t, y), which receives the new state rounded to float. Pass 3
+// keeps the maps of its loads in registers, so a sample's inputs are read
+// twice in all (passes 1 and 3) and its output written once.
 //
 // An Op that declares `static constexpr int kSums = S` (S > 0) also reduces
 // over each row: its store(..., sums) adds to S double accumulators.
@@ -92,30 +87,6 @@ struct MinAffine {
   __device__ __forceinline__ double apply(double y) const { return fmin(c, a * y + d); }
 };
 
-struct Vec2 {
-  double v1;
-  double v2;
-};
-
-// v -> M v + u with M = [[m11, m12], [m21, m22]]
-struct Affine2 {
-  using State = Vec2;
-  double m11, m12, m21, m22;
-  double u1, u2;
-
-  __device__ __forceinline__ static Affine2 identity() {
-    return Affine2{1.0, 0.0, 0.0, 1.0, 0.0, 0.0};
-  }
-  __device__ __forceinline__ static Affine2 compose(Affine2 f, Affine2 g) {  // g . f
-    return Affine2{g.m11 * f.m11 + g.m12 * f.m21, g.m11 * f.m12 + g.m12 * f.m22,
-                   g.m21 * f.m11 + g.m22 * f.m21, g.m21 * f.m12 + g.m22 * f.m22,
-                   g.m11 * f.u1 + g.m12 * f.u2 + g.u1, g.m21 * f.u1 + g.m22 * f.u2 + g.u2};
-  }
-  __device__ __forceinline__ Vec2 apply(Vec2 s) const {
-    return Vec2{m11 * s.v1 + m12 * s.v2 + u1, m21 * s.v1 + m22 * s.v2 + u2};
-  }
-};
-
 // The Map type of an Op: what its step() returns.
 template <class Op>
 using op_map = typename Op::Map;
@@ -125,13 +96,6 @@ template <class Op, class = void>
 struct op_sums : std::integral_constant<int, 0> {};
 template <class Op>
 struct op_sums<Op, std::void_t<decltype(Op::kSums)>> : std::integral_constant<int, Op::kSums> {};
-
-// Op::kRecompute, or false.
-template <class Op, class = void>
-struct op_recompute : std::false_type {};
-template <class Op>
-struct op_recompute<Op, std::void_t<decltype(Op::kRecompute)>>
-    : std::integral_constant<bool, Op::kRecompute> {};
 
 // v from the lane d below, field by field (a Map is a struct of doubles).
 template <class T>
@@ -250,25 +214,6 @@ __device__ __forceinline__ void block_sum(double (&v)[S]) {
   }
 }
 
-// Hands sample t's state to the op (see the top of this file).
-template <class Op, class State, int S>
-__device__ __forceinline__ void store_state(const Op& op, int row, int64_t t, const State& before,
-                                            const State& after, double* sums) {
-  if constexpr (std::is_same<State, double>::value) {
-    if constexpr (S > 0) {
-      op.store(row, t, (float)after, sums);
-    } else {
-      op.store(row, t, (float)after);
-    }
-  } else {
-    if constexpr (S > 0) {
-      op.store(row, t, before, after, sums);
-    } else {
-      op.store(row, t, before, after);
-    }
-  }
-}
-
 // partials[row, chunk, 0..S) receives the block's sums when the Op has any.
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
@@ -277,16 +222,14 @@ chunk_apply(Op op, const typename op_map<Op>::State* carries, int64_t T, int n_c
   using Map = op_map<Op>;
   using State = typename Map::State;
   constexpr int S = op_sums<Op>::value;
-  constexpr bool kKeep = !op_recompute<Op>::value;
   const int row = blockIdx.y;
   const int64_t t0 = (int64_t)blockIdx.x * kChunk + (int64_t)threadIdx.x * kItems;
-  [[maybe_unused]] Map steps[kKeep ? kItems : 1];
+  Map steps[kItems];
   Map acc = Map::identity();
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    const Map m = t0 + i < T ? op.step(row, t0 + i) : Map::identity();
-    if constexpr (kKeep) steps[i] = m;
-    acc = Map::compose(acc, m);
+    steps[i] = t0 + i < T ? op.step(row, t0 + i) : Map::identity();
+    acc = Map::compose(acc, steps[i]);
   }
   Map total;
   const Map before = block_exclusive_scan(acc, &total);
@@ -295,13 +238,12 @@ chunk_apply(Op op, const typename op_map<Op>::State* carries, int64_t T, int n_c
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     if (t0 + i < T) {
-      const State prev = y;
-      if constexpr (kKeep) {
-        y = steps[i].apply(y);
+      y = steps[i].apply(y);
+      if constexpr (S > 0) {
+        op.store(row, t0 + i, (float)y, sums);
       } else {
-        y = op.step(row, t0 + i).apply(y);
+        op.store(row, t0 + i, (float)y);
       }
-      store_state<Op, State, S>(op, row, t0 + i, prev, y, sums);
     }
   }
   if constexpr (S > 0) {

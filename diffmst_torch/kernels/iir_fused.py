@@ -30,25 +30,36 @@ rounds between sections. A float32 scan is wrong by O(1) at the console's
 
 The backward, ``sosfilt_backward``, replaces the VJP at
 iir_fused.py:167-170, which differentiated the XLA scan ``sosfilt_scan``.
-It runs the sections' adjoints in reverse order, each backwards in time:
-a section's input cotangent du is its output cotangent dy through the same
-TDF-II filter on reversed time, and its five coefficient cotangents are
-sum_n w[n] u[n-k] (b_k) and -sum_n w[n] y[n-k] (a_1, a_2) per row, summed
-deterministically, with w[n] = dy[n] - a1 w[n+1] - a2 w[n+2]. w grows like
-1/(1-r)^2 at a pole of radius r; du taken from it as b0 w[n] + b1 w[n+1] +
-b2 w[n+2] would cancel that growth and lose digits (3.8e-5 of du's peak at
-the console's 20 Hz shelf, r = 0.9998, in float64), so each section takes two
-scans, one for du and one for the sums. It needs every section's input: a
-forward whose inputs need gradients writes them (``stages``, S - 1 rows of
-float32 signals: 5 x 16.8 MB for the training step's 32 track rows of
-131,072 samples) rather than the backward recomputing them; a forward that
-is not differentiated writes none. The gradient of a0 is 0, as in JAX,
-where it is unused.
+Per section, backwards in time: the input's cotangent du is the output's
+cotangent dy through the same TDF-II filter on reversed time, and the five
+coefficient cotangents are sum_n w[n] u[n-k] (b_k) and -sum_n w[n] y[n-k]
+(a_1, a_2) per row, summed deterministically, with w[n] = dy[n] - a1 w[n+1]
+- a2 w[n+2]. w grows like 1/(1-r)^2 at a pole of radius r; du taken from it
+as b0 w[n] + b1 w[n+1] + b2 w[n+2] would cancel that growth and lose digits
+(3.8e-5 of du's peak at the console's 20 Hz shelf, r = 0.9998, in float64),
+so du keeps its own recurrence. The sections taken in reverse order are one
+linear time-invariant system on 4S states a row (du's and w's pairs per
+section), and the kernel runs the forward's three passes on it in reversed
+time: a chunk pass (every section over each chunk from a zero state, the
+4S end state), a carry pass on the 4S-vector, an apply pass that reruns
+each chunk from its carry, writes dx and adds the sums in float64 per
+chunk; a fourth launch adds each row's partials in chunk order. Each
+section's du is rounded to float32 before the next section, as the plain
+version rounds. 4S fits the carry's 32-wide state up to eight sections;
+more run in groups of eight (three launches a group). It moves 40 bytes a
+sample (dy read twice; x, the five stages and y read once; dx written)
+against the 36 that bound it. It needs every section's input: a forward
+whose inputs need gradients writes them (``stages``, S - 1 rows of float32
+signals: 5 x 16.8 MB for the training step's 32 track rows of 131,072
+samples) rather than the backward recomputing them; a forward that is not
+differentiated writes none. The gradient of a0 is 0, as in JAX, where it
+is unused.
 
 On a CPU tensor each wrapper runs its plain PyTorch version (``ops/iir.py``
 and ``sosfilt_backward_plain``); on a CUDA tensor it launches the kernel or
 raises. A wrapper call counts as one launch, whatever the number of CUDA
-kernels it starts (three forward, eight a section backward).
+kernels it starts (three forward; four backward at up to eight sections,
+seven at nine to sixteen).
 """
 
 from __future__ import annotations
@@ -65,7 +76,8 @@ from diffmst_torch.ops.iir import biquad_scan, lti2_scan
 __all__ = ["sosfilt", "sosfilt_plain", "sosfilt_backward", "sosfilt_backward_plain"]
 
 _COEFS = 5  # per section and row: b0, b1, b2, a1, a2
-_MAX_SECTIONS = 16  # the forward kernel's limit: the 2S-vector fits a warp
+_MAX_SECTIONS = 16  # the kernels' limit: the forward's 2S-vector fits a warp
+_GROUP = 8  # sections a backward group: its 4S-vector fits the same width
 
 
 def _coef_rows(sos_b: torch.Tensor, sos_a: torch.Tensor) -> torch.Tensor:
@@ -136,7 +148,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("iir_fused.cu")
     lib.diffmst_sosfilt_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
     lib.diffmst_sosfilt_scratch_bytes.restype = ctypes.c_longlong
-    lib.diffmst_sosfilt_backward_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.diffmst_sosfilt_backward_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
     lib.diffmst_sosfilt_backward_scratch_bytes.restype = ctypes.c_longlong
     lib.diffmst_sosfilt.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -146,7 +158,7 @@ def _lib() -> ctypes.CDLL:
     lib.diffmst_sosfilt_backward.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.diffmst_sosfilt_backward.restype = ctypes.c_int
     return lib
@@ -177,6 +189,8 @@ def _check(x: torch.Tensor, coef: torch.Tensor, *more: torch.Tensor) -> None:
         )
     if x.shape[0] > 65535:
         raise ValueError(f"sosfilt takes at most 65535 rows, got {x.shape[0]}")
+    if coef.shape[0] > _MAX_SECTIONS:
+        raise ValueError(f"the sosfilt kernels take at most {_MAX_SECTIONS} sections, got {coef.shape[0]}")
     if x.device.type != "cuda":
         raise ValueError(f"the sosfilt kernel runs on a CUDA device, not {x.device}")
 
@@ -192,8 +206,6 @@ def _launch(x: torch.Tensor, coef: torch.Tensor, *, keep_stages: bool = True, ev
     before its chunk pass and after each of its three passes."""
     _check(x, coef)
     n_sec = coef.shape[0]
-    if n_sec > _MAX_SECTIONS:
-        raise ValueError(f"the sosfilt kernel takes at most {_MAX_SECTIONS} sections, got {n_sec}")
     y = torch.empty_like(x)
     stages = x.new_empty((n_sec - 1 if keep_stages else 0, *x.shape))
     if x.numel() == 0:
@@ -214,9 +226,15 @@ def _launch(x: torch.Tensor, coef: torch.Tensor, *, keep_stages: bool = True, ev
     return y, stages
 
 
-def _launch_backward(x, stages, y, coef, dy):
+def _launch_backward(x, stages, y, coef, dy, *, events=None):
+    """(dx, dcoef) on the card. ``events``: five recorded
+    ``torch.cuda.Event``s with timing, which the call records again before
+    its chunk pass and after each of its four launches (at up to eight
+    sections)."""
     _check(x, coef, stages, y, dy)
     n_sec = coef.shape[0]
+    if events is not None and n_sec > _GROUP:
+        raise ValueError(f"pass events are recorded at up to {_GROUP} sections, got {n_sec}")
     dx = torch.empty_like(x)
     dcoef = torch.empty_like(coef)
     if x.numel() == 0:
@@ -224,14 +242,16 @@ def _launch_backward(x, stages, y, coef, dy):
     rows, t = x.shape
     lib = _lib()
     with torch.cuda.device(x.device):
-        work = torch.empty_like(x) if n_sec > 1 else None
+        work = torch.empty_like(x) if n_sec > _GROUP else None
         scratch = torch.empty(
-            lib.diffmst_sosfilt_backward_scratch_bytes(rows, t), dtype=torch.uint8, device=x.device
+            lib.diffmst_sosfilt_backward_scratch_bytes(rows, t, n_sec), dtype=torch.uint8,
+            device=x.device,
         )
+        marks = None if events is None else (ctypes.c_void_p * 5)(*(e.cuda_event for e in events))
         err = lib.diffmst_sosfilt_backward(
             x.data_ptr(), stages.data_ptr() if n_sec > 1 else None, y.data_ptr(), coef.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), None if work is None else work.data_ptr(),
-            dcoef.data_ptr(), scratch.data_ptr(), rows, t, n_sec, _stream(),
+            dcoef.data_ptr(), scratch.data_ptr(), rows, t, n_sec, _stream(), marks,
         )
     check_launch(lib, err, "sosfilt_backward")
     sosfilt_backward.launches += 1

@@ -11,12 +11,19 @@ lookahead and makeup gain. Smoothers:
   * ``"fused"`` — the same numbers through kernel K2
     (``kernels/comp_fused.py``): detector, knee, scan and gain in one pass;
   * ``"auto"`` — ``"fused"``;
-  * ``"decoupled"`` and ``"decoupled_pallas"`` — attack/release smoothing
-    with a working release (``diffmst_tpu/ops/compressor.py::
-    _smooth_decoupled``:147): the release min-scan, kernel K3
-    (``kernels/scan1p.py::release_min_scan``), then the attack one-pole,
-    K1. Both names take the same path: JAX's "decoupled" was its XLA scan
-    and "decoupled_pallas" its Pallas kernels.
+  * ``"decoupled"`` — attack/release smoothing with a working release
+    (``diffmst_tpu/ops/compressor.py::_smooth_decoupled``:147): the release
+    min-scan, kernel K3 (``kernels/scan1p.py::release_min_scan``), then the
+    attack one-pole, K1.
+
+The JAX package's names for its Pallas kernels (``diffmst_tpu/ops/
+compressor.py``:208, :214, :254) take the port's kernel for the same
+function: ``"scan_pallas"`` and ``"scan_pallas_interpret"`` are ``"scan"``
+(K1), ``"fused_pallas"`` and ``"fused_pallas_interpret"`` are ``"fused"``
+(K2), ``"decoupled_pallas"`` and ``"decoupled_pallas_interpret"`` are
+``"decoupled"`` (K3, then K1). Interpret mode, the Pallas kernels' CPU
+emulation, has its counterpart in the wrappers' plain versions, which CPU
+tensors take.
 
 ``"ballistics"`` (a sequential scan in JAX) is not ported yet.
 """
@@ -33,6 +40,16 @@ from diffmst_torch.kernels.scan1p import onepole_core, release_min_scan
 __all__ = ["compressor", "compressor_gain_db"]
 
 _LOG9 = math.log(9.0)
+
+# The JAX package's Pallas smoother names, by the port's name for the same path.
+_PALLAS_NAMES = {
+    "scan_pallas": "scan",
+    "scan_pallas_interpret": "scan",
+    "fused_pallas": "fused",
+    "fused_pallas_interpret": "fused",
+    "decoupled_pallas": "decoupled",
+    "decoupled_pallas_interpret": "decoupled",
+}
 
 
 def _ballistics_coeff(time_ms: torch.Tensor, sample_rate: float) -> torch.Tensor:
@@ -88,11 +105,12 @@ def compressor_gain_db(
     x_db = 20.0 * torch.log10(torch.clamp(torch.abs(x), min=eps))
     g_c = _static_gain_db(x_db, threshold_db[:, None], ratio[:, None], knee_db[:, None])
     alpha_a = _ballistics_coeff(attack_ms, sample_rate)
+    smoother = _PALLAS_NAMES.get(smoother, smoother)
     if smoother == "fsm":
         return _smooth_fsm(g_c, alpha_a)
     if smoother in ("scan", "auto"):
         return onepole_core(((1.0 - alpha_a)[:, None] * g_c).contiguous(), alpha_a.contiguous())
-    if smoother in ("decoupled", "decoupled_pallas"):
+    if smoother == "decoupled":
         # release stage y1 = min(g, ar y1[n-1] + (1 - ar) g), then the attack pole
         alpha_r = _ballistics_coeff(release_ms, sample_rate)
         y1 = release_min_scan(g_c.contiguous(), alpha_r.contiguous())
@@ -131,6 +149,7 @@ def compressor(
         return p.reshape(bs, -1).expand(bs, chs).reshape(bs * chs)
 
     flat = x.reshape(bs * chs, seq_len)
+    smoother = _PALLAS_NAMES.get(smoother, smoother)
     if smoother == "auto":
         # K2 moves the fewest bytes on the card: read x and the delayed x,
         # write the output; the "scan" path adds the envelope's and the

@@ -5,11 +5,13 @@ Port of ``diffmst_tpu/ops/eq.py``. Methods:
   * ``"fs"`` — the reference's: the cascade's response is sampled on the
     rFFT grid of the whole segment and multiplied in the frequency domain
     (circular convolution);
-  * ``"scan"`` and ``"scan_pallas"`` — the causal cascade of the six
-    biquads from zero state (``scipy.signal.sosfilt``), through kernel K5
-    (``kernels/iir_fused.py``) on a CUDA tensor and its plain version
-    (``ops/iir.py``) on a CPU tensor. Both names take the same path: JAX's
-    "scan" was its XLA scan and "scan_pallas" its Pallas kernel.
+  * ``"scan"``, ``"scan_pallas"`` and ``"scan_pallas_interpret"`` — the
+    causal cascade of the six biquads from zero state
+    (``scipy.signal.sosfilt``), through kernel K5 (``kernels/iir_fused.py``)
+    on a CUDA tensor and its plain version (``ops/iir.py``) on a CPU tensor.
+    The three names take the same path: JAX's "scan" was its XLA scan,
+    "scan_pallas" its Pallas kernel and "scan_pallas_interpret" that
+    kernel's CPU emulation (``diffmst_tpu/ops/eq.py``:137).
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ def parametric_eq(
     shared across channels.
     """
     n = x.shape[-1]
-    if method in ("scan", "scan_pallas"):
+    if method in ("scan", "scan_pallas", "scan_pallas_interpret"):
         bs, chs, _ = x.shape
         b, a = _eq_sos(sample_rate, **eq_params)  # (bs, 6, 3)
         flat = x.reshape(bs * chs, n)

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import scipy.signal
 import torch
+import torch.nn.functional as F
 
 from diffmst_tpu import ops as jops
 from diffmst_tpu.console import AdvancedMixConsole as JaxAdvanced
@@ -282,6 +283,108 @@ def test_causal_plain_backward_versions_match_autograd():
     assert iir_fused.sosfilt_backward.launches == 0
 
 
+def _adjoint_matrix(coef):
+    """The backward cascade's map over one sample, on the 4S states a row in
+    the kernel's layout (``csrc/iir_fused.cu``, ``adjoint_pass``): stage k
+    is section S-1-k, walked backwards in time; entries 4k, 4k+1 are du's
+    TDF-II pair (p1, p2), 4k+2, 4k+3 w's pair (w[n], w[n+1]). Stage k's
+    input is b0 times stage k-1's plus its p1 before the sample. (B, 4S, 4S)."""
+    b0, b1, b2, a1, a2 = coef.flip(0).double().unbind(1)  # (S, B) each, by stage
+    n_sec, rows = b0.shape
+    m = torch.zeros(rows, 4 * n_sec, 4 * n_sec, dtype=torch.float64)
+    for k in range(n_sec):
+        i = 4 * k
+        m[:, i, i], m[:, i, i + 1], m[:, i + 1, i] = -a1[k], 1.0, -a2[k]
+        m[:, i + 2, i + 2], m[:, i + 2, i + 3], m[:, i + 3, i + 2] = -a1[k], -a2[k], 1.0
+        for j in range(k):
+            g = torch.prod(b0[j + 1 : k], dim=0)  # the b0 of the stages between
+            m[:, i, 4 * j] = g * (b1[k] - a1[k] * b0[k])
+            m[:, i + 1, 4 * j] = g * (b2[k] - a2[k] * b0[k])
+            m[:, i + 2, 4 * j] = g
+    return m
+
+
+def _emulated_sosfilt_backward(x, stages, y, coef, dy, chunk):
+    """K5's backward as its kernel decomposes it, in float64: chunks of
+    ``chunk`` samples in reversed time (the row's end first, padded with
+    zeros past its end), a chunk pass from a zero state that runs the
+    stages one after another and keeps each chunk's 4S end state, the
+    carries entering each chunk by A^chunk (A from ``_adjoint_matrix``), and
+    an apply pass that reruns each chunk from its carry, adding the five
+    sums per chunk, then the chunks in order."""
+    n_sec, _, rows = coef.shape
+    t = x.shape[-1]
+    n_chunks = -(-t // chunk)
+    pad = n_chunks * chunk - t
+    b0, b1, b2, a1, a2 = (v[..., None] for v in coef.flip(0).double().unbind(1))  # (S, B, 1)
+    beta1, beta2 = b1 - a1 * b0, b2 - a2 * b0
+
+    def reversed_chunks(v, edge=0):
+        """v in reversed time, position R = n_chunks chunk - 1 - n, as
+        (B, chunks, chunk + edge) windows, each with the ``edge`` samples
+        that precede its chunk in time."""
+        r = F.pad(v.double().flip(-1), (pad, edge))
+        return r.unfold(-1, chunk + edge, chunk)
+
+    def run_stage(k, e, state, sums=None, u=None, out=None):
+        p1, p2, w1, w2 = state.unbind(-1)
+        du = torch.empty_like(e)
+        for r in range(chunk):
+            w1, w2 = e[..., r] - a1[k] * w1 - a2[k] * w2, w1
+            if sums is not None:
+                for m, term in enumerate((u[..., r], u[..., r + 1], u[..., r + 2],
+                                          -out[..., r + 1], -out[..., r + 2])):
+                    sums[m] = sums[m] + w1 * term
+            du[..., r] = b0[k] * e[..., r] + p1
+            p1, p2 = beta1[k] * e[..., r] - a1[k] * p1 + p2, beta2[k] * e[..., r] - a2[k] * p1
+        return du, torch.stack([p1, p2, w1, w2], dim=-1)
+
+    e = reversed_chunks(dy)
+    ends = []
+    for k in range(n_sec):  # chunk pass, from zero
+        e, end = run_stage(k, e, torch.zeros(rows, n_chunks, 4, dtype=torch.float64))
+        ends.append(end)
+    ends = torch.cat(ends, dim=-1)
+    a_chunk = _adjoint_matrix(coef)
+    for _ in range(chunk.bit_length() - 1):
+        a_chunk = a_chunk @ a_chunk
+    carries = [torch.zeros(rows, 4 * n_sec, dtype=torch.float64)]
+    for j in range(n_chunks - 1):
+        carries.append(torch.einsum("bij,bj->bi", a_chunk, carries[-1]) + ends[:, j])
+    carries = torch.stack(carries, dim=1)
+    signals = [x, *stages, y]  # section s reads signals[s] and writes signals[s + 1]
+    e = reversed_chunks(dy)
+    dcoef = torch.empty(coef.shape, dtype=torch.float64)
+    for k in range(n_sec):  # apply pass
+        s = n_sec - 1 - k
+        sums = [0.0] * 5
+        e, _ = run_stage(k, e, carries[..., 4 * k : 4 * k + 4], sums,
+                         reversed_chunks(signals[s], 2), reversed_chunks(signals[s + 1], 2))
+        dcoef[s] = torch.stack([m.sum(-1) for m in sums])
+    dx = e.reshape(rows, -1)[:, pad:].flip(-1)
+    return dx, dcoef
+
+
+def test_sosfilt_backward_chunk_decomposition_matches_plain():
+    """The algebra of K5's backward kernel (4S states a row, chunk pass from
+    zero, carries by A^chunk, apply pass) == sosfilt_backward_plain, in
+    float64, 3 rows x 300 samples in five chunks of 64 (the last one
+    padded), the console's six sections with a 20 Hz, Q 5, +12 dB low shelf
+    on row 0: dx and each of the 30 sums within 1e-9 of their max-abs."""
+    rng = np.random.default_rng(31)
+    b, a = _sections(rng, 3, low_shelf_hz=20.0)
+    coef = iir_fused._coef_rows(torch.from_numpy(b).double(), torch.from_numpy(a).double())
+    x = torch.from_numpy(rng.normal(size=(3, 300)))
+    y, stages = iir_fused._forward_plain(x, coef)
+    dy = torch.from_numpy(rng.normal(size=(3, 300)))
+    dx, dcoef = _emulated_sosfilt_backward(x, stages, y, coef, dy, chunk=64)
+    dx_p, dcoef_p = iir_fused.sosfilt_backward_plain(x, stages, y, coef, dy)
+    _rel_close(dx, dx_p.numpy(), 1e-9, "dx")
+    for s in range(6):
+        for k in range(5):
+            _rel_close(dcoef[s, k], dcoef_p[s, k].numpy(), 1e-9, f"section {s}, sum {k}")
+
+
 def test_causal_kernel_wrappers_check_their_inputs():
     g = torch.zeros(2, 64)
     with pytest.raises(ValueError):
@@ -424,6 +527,57 @@ def test_causal_console_matches_jax(jax_twins, quiet_start):
     (out.mix * _t(w)).sum().backward()
     for name, leaf, r in zip(("dtracks", "dtrack_params", "dmaster_params"), leaves, grads):
         _rel_close(leaf.grad, r, 2e-4, name)
+
+
+# The JAX console's names for its Pallas kernels (diffmst_tpu/ops/
+# compressor.py:208, :214, :254; ops/eq.py:137), as (comp_smoother,
+# eq_method): the port's console under the name, the port's canonical name
+# for the same path, and the JAX console it is held to: the name's
+# "_interpret" twin, or for the EQ JAX's plain "scan", since interpret mode
+# compiles the cascade's Pallas body for over 30 s on the CPU.
+_PALLAS_NAMES = {
+    "scan_pallas": (("scan_pallas", "fs"), ("scan", "fs"), ("scan_pallas_interpret", "fs")),
+    "scan_pallas_interpret": (("scan_pallas_interpret", "fs"), ("scan", "fs"),
+                              ("scan_pallas_interpret", "fs")),
+    "fused_pallas": (("fused_pallas", "fs"), ("fused", "fs"), ("fused_pallas_interpret", "fs")),
+    "fused_pallas_interpret": (("fused_pallas_interpret", "fs"), ("fused", "fs"),
+                               ("fused_pallas_interpret", "fs")),
+    "decoupled_pallas": (("decoupled_pallas", "fs"), ("decoupled", "fs"),
+                         ("decoupled_pallas_interpret", "fs")),
+    "decoupled_pallas_interpret": (("decoupled_pallas_interpret", "fs"), ("decoupled", "fs"),
+                                   ("decoupled_pallas_interpret", "fs")),
+    "eq_scan_pallas": (("decoupled", "scan_pallas"), ("decoupled", "scan"), ("decoupled", "scan")),
+    "eq_scan_pallas_interpret": (("decoupled", "scan_pallas_interpret"), ("decoupled", "scan"),
+                                 ("decoupled", "scan")),
+}
+_jax_console_mixes = {}
+
+
+@pytest.mark.parametrize("case", list(_PALLAS_NAMES))
+def test_console_takes_the_jax_pallas_names(jax_twins, case):
+    """AdvancedMixConsole under each Pallas smoother and EQ name of the JAX
+    console, (2, 2, 4,096), fx bus off: the stems and the mix equal the port's
+    under its canonical name for that path exactly, and agree within 1e-4 with
+    JAX's console in float64 under the name's "_interpret" twin (the EQ's:
+    JAX's "scan")."""
+    name, canonical, jax_names = _PALLAS_NAMES[case]
+    tracks, tp, fp, mp, _ = _console_inputs(33, False)
+
+    def port(comp, eq):
+        out = AdvancedMixConsole(SR, comp_smoother=comp, eq_method=eq, device="cpu")(
+            _t(tracks), _t(tp), _t(fp), _t(mp), use_fx_bus=False)
+        return out.mixed_tracks, out.mix
+
+    got = port(*name)
+    for a_, b_ in zip(got, port(*canonical)):
+        assert torch.equal(a_, b_)
+    if jax_names not in _jax_console_mixes:
+        with jax.enable_x64(True):
+            jc = JaxAdvanced(SR, comp_smoother=jax_names[0], eq_method=jax_names[1])
+            out = jc(_f64(tracks), _f64(tp), _f64(fp), _f64(mp), use_fx_bus=False)
+            _jax_console_mixes[jax_names] = (np.asarray(out.mixed_tracks), np.asarray(out.mix))
+    for a_, ref in zip(got, _jax_console_mixes[jax_names]):
+        np.testing.assert_allclose(a_.numpy(), ref, rtol=0, atol=1e-4)
 
 
 def test_causal_console_counts_no_launch_on_cpu():

@@ -217,6 +217,11 @@ def _sections(gen, rows, dev, low_shelf_hz=None):
 _K5_CHUNK = 4096  # samples a block of K5's forward (csrc/iir_fused.cu, kChunk)
 
 
+def _more_sections(b, a, sections):
+    """The EQ's six sections repeated up to ``sections`` (a wider state)."""
+    return tuple(v.repeat(1, 3, 1)[:, :sections].contiguous() for v in (b, a))
+
+
 @pytest.mark.parametrize(
     "rows,t,sections",
     [(1, 1, 6), (3, 100, 6), (5, 2047, 6), (2, 2048, 6), (7, 2049, 6), (33, 10000, 6),
@@ -226,8 +231,7 @@ _K5_CHUNK = 4096  # samples a block of K5's forward (csrc/iir_fused.cu, kChunk)
 def test_sosfilt_kernel_matches_plain(card, rows, t, sections):
     gen = torch.Generator().manual_seed(rows * t + 3)
     b, a = _sections(gen, rows, card)
-    # the EQ's six sections, repeated for more (a wider carry)
-    b, a = (v.repeat(1, 2, 1)[:, :sections].contiguous() for v in (b, a))
+    b, a = _more_sections(b, a, sections)  # a wider carry
     x = torch.randn(rows, t, generator=gen).to(card)
     before = iir_fused.sosfilt.launches
     y = iir_fused.sosfilt(x, b, a)
@@ -276,12 +280,14 @@ def test_sosfilt_carries_hold_over_256_chunks_at_a_20hz_shelf(card):
     assert np.abs(y - ref).max() <= 1e-4 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("sections", [1, 6, 9, 16])
 @pytest.mark.parametrize("t", [1, 2, 3, 2047, 4097, 10001])
 @pytest.mark.parametrize("rows", [1, 8, 32])
-def test_sosfilt_backward_kernel_matches_plain(card, rows, t):
+def test_sosfilt_backward_kernel_matches_plain(card, rows, t, sections):
+    """Above eight sections the backward runs in groups of eight."""
     gen = torch.Generator().manual_seed(rows * t + 4)
     b, a = _sections(gen, rows, card, low_shelf_hz=20.0 if rows > 1 else None)
-    coef = iir_fused._coef_rows(b, a)
+    coef = iir_fused._coef_rows(*_more_sections(b, a, sections))
     x = torch.randn(rows, t, generator=gen).to(card)
     y, stages = iir_fused._forward_plain(x, coef)
     dy = torch.randn(rows, t, generator=gen).to(card)
@@ -294,6 +300,55 @@ def test_sosfilt_backward_kernel_matches_plain(card, rows, t):
     for s in range(coef.shape[0]):
         for k in range(coef.shape[1]):
             assert _rel(dcoef[s, k], dcoef_p[s, k]) <= 1e-4, (s, k)
+
+
+def test_sosfilt_backward_holds_over_256_chunks_at_a_20hz_shelf(card):
+    """The 4S-state chunk carries of K5's backward do not pile up errors over
+    a long row: 4 x 1,048,576 samples with the 20 Hz, Q 5, +12 dB low shelf
+    against the plain backward in float64 (same stages), dx within 1e-5 of
+    its max-abs and each of the 30 sums within 1e-4."""
+    gen = torch.Generator().manual_seed(10)
+    b, a = _sections(gen, 4, card, low_shelf_hz=20.0)
+    coef = iir_fused._coef_rows(b, a)
+    x = torch.randn(4, 2**20, generator=gen).to(card)
+    y, stages = iir_fused._forward_plain(x, coef)
+    dy = torch.randn(4, 2**20, generator=gen).to(card)
+    dx, dcoef = iir_fused.sosfilt_backward(x, stages, y, coef, dy)
+    torch.cuda.synchronize()
+    dx_p, dcoef_p = iir_fused.sosfilt_backward_plain(
+        *(t.double() for t in (x, stages, y, coef, dy)))
+    assert bool(torch.isfinite(dx).all() and torch.isfinite(dcoef).all())
+    assert _rel(dx, dx_p) <= 1e-5
+    for s in range(6):
+        for k in range(5):
+            assert _rel(dcoef[s, k], dcoef_p[s, k]) <= 1e-4, (s, k)
+
+
+@pytest.mark.parametrize("sections", [6, 16])
+def test_sosfilt_backward_counts_one_launch_a_call(card, sections):
+    """A backward call counts one launch, whether it starts four CUDA kernels
+    (up to eight sections) or seven (two groups); its pass events, taken at
+    up to eight sections, time four launches."""
+    gen = torch.Generator().manual_seed(11)
+    b, a = _sections(gen, 4, card)
+    coef = iir_fused._coef_rows(*_more_sections(b, a, sections))
+    x = torch.randn(4, 3 * _K5_CHUNK + 5, generator=gen).to(card)
+    y, stages = iir_fused._launch(x, coef)
+    dy = torch.randn_like(x)
+    iir_fused.sosfilt_backward.launches = 0
+    iir_fused.sosfilt_backward(x, stages, y, coef, dy)
+    assert iir_fused.sosfilt_backward.launches == 1
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    for e in events:
+        e.record()
+    if sections > 8:
+        with pytest.raises(ValueError):
+            iir_fused._launch_backward(x, stages, y, coef, dy, events=events)
+        return
+    iir_fused._launch_backward(x, stages, y, coef, dy, events=events)
+    events[-1].synchronize()
+    assert iir_fused.sosfilt_backward.launches == 2
+    assert all(events[k].elapsed_time(events[k + 1]) >= 0.0 for k in range(4))
 
 
 def test_sosfilt_forward_stages_match_plain(card):
