@@ -12,8 +12,11 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      min-scan) and K5 (biquad cascade) at the serving shapes, and their
      backward kernels (K1's with a per-row and, as K4's, a per-sample alpha;
      K2's, with the envelope that K2's forward writes for it) at the
-     training shapes, against their plain PyTorch versions, with times and
-     bounds; K5 also against scipy.signal.sosfilt in float64 at a 20 Hz
+     training shapes, against their plain PyTorch versions, with times,
+     achieved TB/s and bounds; K2 and its backward (one single-pass kernel
+     each) also over 4 rows of 2^20 + 3 samples at a 250 ms attack against
+     float64, and one call of each traced with torch.profiler (one kernel
+     and one memset a call); K5 also against scipy.signal.sosfilt in float64 at a 20 Hz
      high-Q low shelf, its time split by its three kernels (chunk, carry,
      apply; CUDA events), and the stages it writes for its backward
      against the plain version's; K5's backward at the track and master
@@ -221,14 +224,30 @@ def phase_kernels(form: str):
         else:
             line(f"[kernels] {name} {shape}: max_abs_err {err:.3g}, max relative error "
                  + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
-        line(f"[kernels] {name} {shape}: {ms:.4f} ms ({call_ms:.4f} ms a call with the host)"
-             f" | plain {plain_ms:.4f} ms | bound {bound_ms * 1e3:.1f} us ({by}) | {launches} launches")
+        line(f"[kernels] {name} {shape}: {ms:.4f} ms ({call_ms:.4f} ms a call with the host),"
+             f" {nbytes / ms / 1e9:.3f} TB/s | plain {plain_ms:.4f} ms | bound {bound_ms * 1e3:.1f} us"
+             f" ({by}) | {launches} launches")
         s = stats.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": None})
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if rel:
             s["max_rel_err"] = max(s["max_rel_err"] or 0.0, *rel.values())
         if reported:  # the track chain's shape
             s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, shape=shape)
+
+    def device_ops(fn):
+        """The kernel launches, memsets and copies that one call of ``fn``
+        puts on the card, from a torch.profiler trace of that call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        memsets = sum(n.startswith("Memset") for n in names)
+        copies = sum(n.startswith("Memcpy") for n in names)
+        return dict(kernels=len(names) - memsets - copies, memsets=memsets, copies=copies,
+                    names=[n[:60] for n in names])
 
     # K1: y[n] = a y[n-1] + (1 - a) g[n], g the compressor's gain in dB
     for rows, per_sample in ((32, False), (8, False), (32, True)):
@@ -361,6 +380,62 @@ def phase_kernels(form: str):
                lambda: bwd(x, xd, p, env, dy),
                lambda: comp_fused.compressor_fused_backward_plain(x, xd, p, env_p, dy),
                n * 24 + rows * 40, 28 * n, bwd.launches, rows == 32, rel)
+
+    # K2 and its backward over 4 x (2^20 + 3) samples (257 and 513 tiles a row, the
+    # rows' starts off 16 bytes) at alpha 0.9998, a 250 ms attack, against
+    # the plain versions in float64: the look-back's carries over a long row
+    rows, t = 4, 2**20 + 3
+    x = torch.randn(rows, t, device=dev, generator=gen) * torch.linspace(0.02, 1.0, t, device=dev)
+    x = x / x.abs().amax(dim=-1, keepdim=True)
+    xd = torch.roll(x, 1024, dims=-1)
+    thr, ratio, _, knee, makeup = params(rows)
+    alpha = torch.full((rows,), 0.9998, device=dev)
+    p = comp_fused._param_rows(thr, ratio, knee, alpha, makeup).contiguous()
+    out, env = comp_fused._launch(x, xd, p, 1e-8, envelope=True)
+    dy = torch.randn(rows, t, device=dev, generator=gen)
+    got = comp_fused.compressor_fused_backward(x, xd, p, env, dy)
+    torch.cuda.synchronize()
+    out64, env64 = comp_fused._forward_plain(x.double(), xd.double(), p.double(), 1e-8)
+    want = comp_fused.compressor_fused_backward_plain(*(v.double() for v in (x, xd, p, env, dy)))
+    long_err = {"out": abs_err([(out, out64)]), "envelope": abs_err([(env, env64)]),
+                "dx": rel_err(got[0], want[0]), "dx_delayed": rel_err(got[1], want[1]),
+                "sums": max(rel_err(got[2][k], want[2][k]) for k in range(5))}
+    line(f"[kernels] compressor_fused_gain and its backward {rows}x{t}, alpha 0.9998, against"
+         f" float64: out {long_err['out']:.3g}, envelope {long_err['envelope']:.3g} dB (max-abs);"
+         f" dx {long_err['dx']:.3g}, dx_delayed {long_err['dx_delayed']:.3g},"
+         f" sums {long_err['sums']:.3g} (of their max-abs)")
+    require(long_err["out"] <= 1e-5 and long_err["envelope"] <= 1e-5,
+            f"K2 over 257 tiles a row agrees with float64 ({long_err})")
+    require(long_err["dx"] <= 1e-5 and long_err["dx_delayed"] <= 1e-5 and long_err["sums"] <= 1e-4,
+            f"K2's backward over 513 tiles a row agrees with float64 ({long_err})")
+    del x, xd, out, env, dy, got, out64, env64, want
+
+    # What one call of K2 (with and without the envelope) and of its backward
+    # puts on the card at the track chain's shapes, counted in a trace of
+    # that call: the look-back kernel and the memset of its scratch
+    x = audio(32)
+    xd = torch.roll(x, 2048, dims=-1)
+    thr, ratio, attack, knee, makeup = params(32)
+    p = comp_fused._param_rows(thr, ratio, knee, _ballistics_coeff(attack, SR), makeup).contiguous()
+    xh, xdh = x[:, :HALF].contiguous(), xd[:, :HALF].contiguous()
+    _, env = comp_fused._launch(xh, xdh, p, 1e-8, envelope=True)
+    dy = torch.randn(32, HALF, device=dev, generator=gen)
+    calls = {
+        ("compressor_fused_gain", f"32x{WINDOW}"):
+            lambda: comp_fused._launch(x, xd, p, 1e-8, envelope=False),
+        ("compressor_fused_gain", f"32x{HALF} writing the envelope"):
+            lambda: comp_fused._launch(xh, xdh, p, 1e-8, envelope=True),
+        ("compressor_fused_backward", f"32x{HALF}"):
+            lambda: comp_fused.compressor_fused_backward(xh, xdh, p, env, dy),
+    }
+    for (name, shape), fn in calls.items():
+        ops = device_ops(fn)
+        line(f"[kernels] {name} {shape}, one call traced (torch.profiler): {ops['kernels']} kernel"
+             f" launches, {ops['memsets']} memsets, {ops['copies']} copies ({'; '.join(ops['names'])})")
+        require((ops["kernels"], ops["memsets"], ops["copies"]) == (1, 1, 0),
+                f"one {name} call is one kernel and one memset ({ops})")
+        stats[name].update(cuda_launches_per_call=ops["kernels"], memsets_per_call=ops["memsets"])
+    del x, xd, xh, xdh, env, dy
 
     # K3: the release stage on the detector's and the knee's gains of
     # synthetic audio, releases of 10-250 ms
@@ -1078,10 +1153,13 @@ def phase_training_causal():
 
 
 def kernel_entry(name, source, replaces, launches, k, **extra):
+    """The kernel's entry of the JSON line; the kernel launches and memsets a
+    call, where [kernels] traced them."""
+    per_call = {key: k[key] for key in ("cuda_launches_per_call", "memsets_per_call") if key in k}
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                 bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
-                max_rel_err=k["max_rel_err"], shape=k["shape"], **extra)
+                max_rel_err=k["max_rel_err"], shape=k["shape"], **per_call, **extra)
 
 
 def main() -> int:

@@ -13,25 +13,32 @@ Kernel: ``csrc/comp_fused.cu``, a hand-written CUDA kernel for Hopper
 
 Bound on the card: memory. The least traffic is read x + read x_delayed +
 write out, 12 bytes a sample: 100.7 MB at 32 x 262,144, about 30 us at the
-H100 SXM's 3.35 TB/s. x_db, the static gain and the smoothed envelope stay in
-registers. Like K1 the kernel is a three-pass chunked scan over the rows in
-place (``csrc/scan_common.cuh``), composed in float64, with the level
-detector and the knee computed as each sample is loaded. On an NVIDIA H100
-80GB HBM3 at 700 W it takes 0.16 ms at 32 x 262,144, five times the bound
-(``chip_smoke.py``; PERF.md).
+H100 SXM's 3.35 TB/s. x_db, the static gain and the smoothed envelope stay
+on chip. The kernel is one single-pass scan with decoupled look-back
+(``csrc/lookback.cuh``): each block takes a 4,096-sample tile of a row from
+an atomic ticket, copies x and then x_delayed into shared memory with
+cp.async, scans its tile from zero in float64, takes the state entering
+it from the tiles before it (their aggregates, published as 64-bit words
+over a fill pattern) and writes its output, so every input is read once. A
+call is that one kernel and one cudaMemsetAsync of its counters. Times on
+the card: PERF.md, section 6 (``chip_smoke.py``,
+``scripts/time_compressor_cuda.py``).
 
 The backward (``compressor_fused_backward``) replaces the VJP at
 comp_fused.py:167-176, which recomputed the forward through XLA's
 associative scan. PyTorch has no scan whose autograd could stand in, so it
-is a kernel too: a reverse-time scan (K1's machinery) of the envelope's
-cotangent u = dy * out * ln10/20 that writes dx and dx_delayed and sums the
-five parameter cotangents per row, deterministically. It needs the envelope
-g_s at every sample; a forward that will be differentiated writes it (4
-bytes a sample more) rather than the backward recomputing it, which would
-read x twice more and write the same envelope anyway. The backward reads x,
-x_delayed, g_s and dy and writes dx and dx_delayed: 24 bytes a sample.
+is a kernel too: the same single-pass scan on reversed time (2,048-sample
+tiles, the row's partial tile first) of the envelope's cotangent u = dy *
+out * ln10/20, which writes dx and dx_delayed; each tile writes its five
+parameter partial sums, and the last tile of a row to finish adds them in
+a fixed order, so the sums are deterministic. It needs the envelope g_s at
+every sample; a forward that will be differentiated writes it (4 bytes a
+sample more) rather than the backward recomputing it. The backward reads
+x, x_delayed, g_s and dy and writes dx and dx_delayed: 24 bytes a sample.
 ``compressor_fused_gain`` is an ``autograd.Function`` over both halves; the
 parameters' cotangents chain to ratio and the knee through ``_param_rows``.
+Each call takes its own scratch (``torch.empty`` on the call's stream), so
+calls on two streams do not share it.
 
 The kernels clamp the knee to at least 1e-3 dB (comp_fused.py:151) so the
 knee division never sees 0, and give it a cotangent only above 1e-3
@@ -194,8 +201,6 @@ def _check(x: torch.Tensor, x_delayed: torch.Tensor, params: torch.Tensor, *more
             f"compressor_fused_gain takes x, x_delayed (B, T) and (B,) parameters; got "
             f"{tuple(x.shape)}, {tuple(x_delayed.shape)}, params {tuple(params.shape)}"
         )
-    if x.shape[0] > 65535:
-        raise ValueError(f"compressor_fused_gain takes at most 65535 rows, got {x.shape[0]}")
     if x.device.type != "cuda":
         raise ValueError(f"the compressor_fused_gain kernel runs on a CUDA device, not {x.device}")
 

@@ -7,8 +7,8 @@ which the card's machine does not have):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Shapes are ragged on purpose: T below, at and just past one 2,048-sample
-block (K5's forward: one 4,096-sample chunk), and row counts that fill no
-warp. Tolerances: 1e-5 in dB on K1 and
+block (K5's forward and K2's: one 4,096-sample chunk or tile; K2's
+backward: 2,048), and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 and
 K3 (both versions compose in float64 and round once), 1e-5 on K2's audio
 and 1e-5 of K5's peak. The backward kernels are held against their plain
 versions at 1e-5 of each output's max-abs, and at 1e-4 on the per-row sums
@@ -130,6 +130,127 @@ def test_compressor_forward_envelope_matches_plain(card):
     torch.cuda.synchronize()
     torch.testing.assert_close(env, env_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(out, out_p, rtol=0, atol=1e-5)
+
+
+def _comp_case(card, rows, t, seed, alpha=None):
+    """Peak-normalized audio, x_delayed = x rolled by 1,024, (5, rows)
+    parameter rows (attacks of 1-250 ms, or ``alpha`` on every row) and a
+    cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, t, generator=gen) * torch.linspace(0.02, 1.0, t)
+    x = (x / x.abs().amax(dim=-1, keepdim=True)).to(card)
+    xd = torch.roll(x, 1024, dims=-1)
+    u = lambda lo, hi: (lo + (hi - lo) * torch.rand(rows, generator=gen)).to(card)  # noqa: E731
+    a = _alpha(gen, rows, card) if alpha is None else torch.full((rows,), alpha, device=card)
+    params = comp_fused._param_rows(u(-40.0, -6.0), u(1.5, 10.0), u(0.0, 12.0), a,
+                                    u(0.0, 6.0)).contiguous()
+    return x, xd, params, torch.randn(rows, t, generator=gen).to(card)
+
+
+def _check_compressor_kernels(x, xd, params, dy, plain_dtype=torch.float32):
+    """K2 (with and without the envelope) and its backward against their
+    plain versions run in ``plain_dtype``: the output within 1e-5, the
+    envelope within 1e-5 dB, dx and dx_delayed within 1e-5 and the five sums
+    within 1e-4 of their max-abs; one launch a call."""
+    before = (comp_fused.compressor_fused_gain.launches, comp_fused.compressor_fused_backward.launches)
+    out, _ = comp_fused._launch(x, xd, params, 1e-8, envelope=False)
+    out_e, env = comp_fused._launch(x, xd, params, 1e-8, envelope=True)
+    got = comp_fused.compressor_fused_backward(x, xd, params, env, dy)
+    torch.cuda.synchronize()
+    assert comp_fused.compressor_fused_gain.launches == before[0] + 2
+    assert comp_fused.compressor_fused_backward.launches == before[1] + 1
+    cast = [t.to(plain_dtype) for t in (x, xd, params, env, dy)]
+    out_p, env_p = comp_fused._forward_plain(*cast[:3], 1e-8)
+    want = comp_fused.compressor_fused_backward_plain(*cast)
+    assert torch.equal(out, out_e)
+    assert (out.double() - out_p.double()).abs().max().item() <= 1e-5
+    assert (env.double() - env_p.double()).abs().max().item() <= 1e-5
+    for name, g, w in zip(("dx", "dx_delayed"), got, want):
+        assert bool(torch.isfinite(g).all()) and _rel(g, w) <= 1e-5, name
+    for k, name in enumerate(("threshold", "1/ratio-1", "knee", "alpha", "makeup")):
+        assert _rel(got[2][k], want[2][k]) <= 1e-4, name
+    return out, env, got
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 4097, 4100, 10001])
+@pytest.mark.parametrize("rows", [1, 8, 33])
+def test_compressor_lookback_kernels_match_plain(card, rows, t):
+    """K2 and its backward at ragged shapes: one tile or a few, the row's
+    start off 16 bytes (T % 4 != 0: scalar loads) or on them (4100)."""
+    _check_compressor_kernels(*_comp_case(card, rows, t, seed=rows * t + 11))
+
+
+def test_compressor_lookback_holds_over_256_tiles_at_a_250ms_attack(card):
+    """4 x (2^20 + 3) samples, 257 tiles a row forward and 513 backward,
+    alpha 0.9998 (a 250 ms attack): the look-back's float64 carries against
+    the plain versions run in float64."""
+    _check_compressor_kernels(*_comp_case(card, 4, 2**20 + 3, seed=12, alpha=0.9998),
+                              plain_dtype=torch.float64)
+
+
+def test_compressor_lookback_runs_more_tiles_than_are_resident(card):
+    """256 x 262,144 samples: 16,384 tiles, more than the card holds at once."""
+    _check_compressor_kernels(*_comp_case(card, 256, 262144, seed=13))
+
+
+def test_compressor_lookback_kernels_are_deterministic(card):
+    """Three calls give bit-identical outputs, envelopes and sums."""
+    x, xd, params, dy = _comp_case(card, 33, 100003, seed=14)
+    runs = []
+    for _ in range(3):
+        out, env = comp_fused._launch(x, xd, params, 1e-8, envelope=True)
+        runs.append((out, env, *comp_fused.compressor_fused_backward(x, xd, params, env, dy)))
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+def test_compressor_lookback_kernels_on_two_streams(card):
+    """Calls on two CUDA streams at once give what they give one after the
+    other: each call has its own scratch."""
+    cases = [_comp_case(card, rows, t, seed=15 + rows) for rows, t in ((32, 131072), (8, 262144))]
+
+    def run(case):
+        x, xd, params, dy = case
+        out, env = comp_fused._launch(x, xd, params, 1e-8, envelope=True)
+        return (out, env, *comp_fused.compressor_fused_backward(x, xd, params, env, dy))
+
+    alone = [run(c) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    together = []
+    for s, c in zip(streams, cases):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            together.append(run(c))
+    torch.cuda.synchronize()
+    for a, b in zip(alone, together):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_compressor_lookback_takes_more_than_65535_rows(card):
+    """70,000 rows of 5 samples: one tile a row, a one-dimensional grid."""
+    _check_compressor_kernels(*_comp_case(card, 70000, 5, seed=16))
+
+
+def test_compressor_lookback_is_one_kernel_and_one_memset_a_call(card):
+    """A trace of one call of K2 (with and without the envelope) and of its
+    backward shows one kernel launch, one memset and no copy each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, xd, params, dy = _comp_case(card, 8, 10001, seed=17)
+    _, env = comp_fused._launch(x, xd, params, 1e-8, envelope=True)
+    calls = (lambda: comp_fused._launch(x, xd, params, 1e-8, envelope=False),
+             lambda: comp_fused._launch(x, xd, params, 1e-8, envelope=True),
+             lambda: comp_fused.compressor_fused_backward(x, xd, params, env, dy))
+    for fn in calls:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        memsets = [n for n in names if n.startswith("Memset")]
+        assert len(memsets) == 1 and len(names) == 2 and not any(n.startswith("Memcpy") for n in names), names
 
 
 def test_autograd_runs_the_backward_kernels(card):

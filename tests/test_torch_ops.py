@@ -227,6 +227,136 @@ def test_backward_wrappers_take_plain_version_on_cpu():
     assert comp_fused.compressor_fused_backward.launches == 0
 
 
+def _compose(f, t):
+    """(A, B) of "apply f, then t" for maps y -> A y + B."""
+    return f[0] * t[0], t[0] * f[1] + t[1]
+
+
+def _warp_tree(a, b):
+    """The look-back warp's fixed tree over 32 lanes (higher lanes earlier in
+    time): lane l takes lane l + d before it, d = 1, 2, ..., 16; lane 0's map."""
+    a, b = a.copy(), b.copy()
+    for d in (1, 2, 4, 8, 16):
+        a[:, : 32 - d], b[:, : 32 - d] = _compose((a[:, d:], b[:, d:]), (a[:, : 32 - d], b[:, : 32 - d]))
+    return a[:, 0], b[:, 0]
+
+
+def _lookback_scan(b, alpha, tile, reverse):
+    """y[n] = alpha y[n-1] + b[n] from 0 (or the adjoint, backwards in time),
+    float64, in the order of the single-pass kernels (kernels/csrc/lookback.cuh):
+    scan-order tiles of `tile` samples (reversed: the partial chunk at the
+    row's end comes first), each scanned from zero; each tile's entering
+    state from the state entering its group of 32 tiles, which the group's
+    last tile publishes, and the aggregates before it in the group, in the
+    warp's tree; the multiplicative part of a read aggregate alpha^tile by
+    squaring. Returns the states in forward time and the scan-order tiles."""
+    rows, t = b.shape
+    nt = -(-t // tile)
+    pad = nt * tile - t
+    ones, poles = np.ones((rows, pad)), np.broadcast_to(alpha[:, None], (rows, t))
+    if reverse:  # the padding (identity maps) leads the scan
+        a_n, b_n = np.concatenate([ones, poles], 1), np.concatenate([0 * ones, b[:, ::-1]], 1)
+    else:
+        a_n, b_n = np.concatenate([poles, ones], 1), np.concatenate([b, 0 * ones], 1)
+    a_n, b_n = a_n.reshape(rows, nt, tile), b_n.reshape(rows, nt, tile)
+
+    def run(start):
+        y, out = start, np.empty_like(b_n)
+        for i in range(tile):
+            y = a_n[:, :, i] * y + b_n[:, :, i]
+            out[:, :, i] = y
+        return out
+
+    agg = run(np.zeros((rows, nt)))[:, :, -1]  # each tile's B from zero
+    a_tile = alpha.copy()
+    for _ in range(int(np.log2(tile))):
+        a_tile = a_tile * a_tile
+    prefix, entering = {}, np.empty((rows, nt))
+    for j in range(nt):
+        q, r = divmod(j, 32)
+        mb = np.zeros((rows, 32))
+        mb[:, :r] = agg[:, j - 1 - np.arange(r)]
+        ma = np.where(np.arange(32) < r, a_tile[:, None], 1.0)
+        g = (a_tile, prefix[q]) if q else (np.ones(rows), np.zeros(rows))
+        entering[:, j] = _compose(g, _warp_tree(ma, mb))[1]
+        if r == 31 and j + 1 < nt:  # the state entering the next group
+            ga, gb = ma.copy(), np.zeros((rows, 32))
+            ga[:, 0], gb[:, 0], gb[:, 1:] = alpha**tile, agg[:, j], mb[:, :31]
+            ga[:, 1:] = a_tile[:, None]
+            prefix[q + 1] = _compose(g, _warp_tree(ga, gb))[1]
+    y = run(entering).reshape(rows, nt * tile)
+    y = y[:, pad:][:, ::-1] if reverse else y[:, :t]
+    return y, nt
+
+
+def _knee_terms(x, params, eps=1e-8):
+    """g_c and its derivatives by over, 1/ratio - 1 and the knee, float64."""
+    thr, irm1, knee, _, _ = (p[:, None] for p in params)
+    knee = np.maximum(knee, 1e-3)
+    over = 20.0 / np.log(10.0) * np.log(np.maximum(np.abs(x), eps)) - thr
+    w = over + knee / 2
+    below, above = over <= -knee / 2, over >= knee / 2
+
+    def region(at_above, in_knee):
+        return np.where(below, 0.0, np.where(above, at_above, in_knee))
+
+    return (region(irm1 * over, irm1 * w * w / (2 * knee)), region(irm1 + 0 * over, irm1 * w / knee),
+            region(over, w * w / (2 * knee)), region(0 * over, irm1 * w * (knee - w) / (2 * knee**2)))
+
+
+@pytest.mark.parametrize("tile,t", [(4096, 10001), (16, 5000)], ids=["tile4096", "tile16_313"])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_compressor_lookback_decomposition_matches_plain(direction, tile, t):
+    """The algebra of K2's single-pass kernels, emulated in float64: tiles
+    scanned from zero, their aggregates, the look-back's compositions
+    (groups of 32 tiles), reversed-time tiles with the partial one first,
+    and for the backward the per-tile partial sums added as the row's last
+    tile adds them (lane l takes tiles l, l + 32, ..., then the lanes in a
+    tree). Held against onepole_core_plain (the envelope) and
+    compressor_fused_backward_plain at 1e-12 of each output's max-abs;
+    3 rows, 4,096-sample tiles at T = 10,001 and 16-sample tiles over 313
+    tiles at T = 5,000."""
+    rng = np.random.default_rng(41)
+    rows, eps, k = 3, 1e-8, np.log(10.0) / 20.0
+    x = rng.normal(size=(rows, t)) * np.linspace(0.02, 1.0, t)
+    x /= np.abs(x).max(axis=-1, keepdims=True)
+    xd = np.roll(x, 1024, axis=-1)
+    params = np.stack([rng.uniform(-40.0, -6.0, rows), 1.0 / rng.uniform(1.5, 10.0, rows) - 1.0,
+                       rng.uniform(0.0, 12.0, rows), np.full(rows, 0.9998), rng.uniform(0.0, 6.0, rows)])
+    params[3, 0] = _attack_alpha(rng, 1)[0]
+    alpha, makeup = params[3], params[4][:, None]
+    g_c, d_over, d_irm1, d_knee = _knee_terms(x, params, eps)
+    b = torch.from_numpy((1.0 - alpha)[:, None] * g_c)
+    env_plain = scan1p.onepole_core_plain(b, torch.from_numpy(alpha))
+    if direction == "forward":
+        env, _ = _lookback_scan((1.0 - alpha)[:, None] * g_c, alpha, tile, reverse=False)
+        _rel_close(env, env_plain.numpy(), 1e-12, "g_s")
+        return
+    dy = rng.normal(size=(rows, t))
+    env = env_plain.numpy()
+    dxd = dy * np.exp(k * (env + makeup))
+    u = dxd * xd * k
+    s, nt = _lookback_scan(u, alpha, tile, reverse=True)
+    dg = (1.0 - alpha)[:, None] * s
+    dx = np.where(np.abs(x) > eps, dg * d_over / (k * x), 0.0)
+    g_prev = np.pad(env[:, :-1], ((0, 0), (1, 0)))
+    terms = [-dg * d_over, dg * d_irm1, dg * d_knee * (params[2] > 1e-3)[:, None], s * (g_prev - g_c), u]
+    pad = nt * tile - t
+    sums = []
+    for term in terms:  # partials of the scan-order tiles, then the row's last tile's order
+        parts = np.pad(term[:, ::-1], ((0, 0), (pad, 0))).reshape(rows, nt, tile).sum(-1)
+        lanes = np.zeros((rows, 32))
+        for j in range(nt):
+            lanes[:, j % 32] += parts[:, j]
+        for d in (16, 8, 4, 2, 1):
+            lanes[:, :d] += lanes[:, d : 2 * d]
+        sums.append(lanes[:, 0])
+    want = comp_fused.compressor_fused_backward_plain(
+        *(torch.from_numpy(a) for a in (x, xd, params, env, dy)), eps)
+    for name, got, w in zip(("dx", "dx_delayed", "dparams"), (dx, dxd, np.stack(sums)), want):
+        _rel_close(got, w.numpy(), 1e-12, name)
+
+
 def test_kernel_wrappers_take_plain_version_on_cpu():
     """On CPU tensors no kernel launches: both launch counters stay at 0."""
     scan1p.onepole_core.launches = 0
