@@ -8,15 +8,16 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
 
   1. device: the card's name and power limit;
   2. build: every kernel, timed, with ptxas's registers and spills;
-  3. kernels: K1 (one-pole scan), K2 (fused compressor), K3 (release
-     min-scan) and K5 (biquad cascade) at the serving shapes, and their
-     backward kernels (K1's with a per-row and, as K4's, a per-sample alpha;
-     K2's, with the envelope that K2's forward writes for it) at the
-     training shapes, against their plain PyTorch versions, with times,
-     achieved TB/s and bounds; K2 and its backward (one single-pass kernel
-     each) also over 4 rows of 2^20 + 3 samples at a 250 ms attack against
-     float64, and one call of each traced with torch.profiler (one kernel
-     and one memset a call); K5 also against scipy.signal.sosfilt in float64 at a 20 Hz
+  3. kernels: K1 (one-pole scan; with a per-sample alpha, K4), K2 (fused
+     compressor), K3 (release min-scan) and K5 (biquad cascade) at the
+     serving shapes, and their backward kernels (K1's with a per-row and, as
+     K4's, a per-sample alpha; K2's, with the envelope that K2's forward
+     writes for it) at the training shapes, against their plain PyTorch
+     versions, with times, achieved TB/s and bounds; K2 and its backward, K1
+     (a row's alpha) and K3 (one single-pass kernel each) also over 4 rows
+     of 2^20 + 3 samples at a pole of 0.9998 against float64, and one call
+     of each traced with torch.profiler (one kernel and one memset a call);
+     K5 also against scipy.signal.sosfilt in float64 at a 20 Hz
      high-Q low shelf, its time split by its three kernels (chunk, carry,
      apply; CUDA events), and the stages it writes for its backward
      against the plain version's; K5's backward at the track and master
@@ -232,7 +233,8 @@ def phase_kernels(form: str):
         if rel:
             s["max_rel_err"] = max(s["max_rel_err"] or 0.0, *rel.values())
         if reported:  # the track chain's shape
-            s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, shape=shape)
+            s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, shape=shape,
+                     achieved_tb_s=nbytes / ms / 1e9)
 
     def device_ops(fn):
         """The kernel launches, memsets and copies that one call of ``fn``
@@ -249,6 +251,16 @@ def phase_kernels(form: str):
         return dict(kernels=len(names) - memsets - copies, memsets=memsets, copies=copies,
                     names=[n[:60] for n in names])
 
+    def traced(name, shape, fn):
+        """Requires one call of a single-pass kernel's wrapper to put one
+        kernel launch and one memset, and no copy, on the card."""
+        ops = device_ops(fn)
+        line(f"[kernels] {name} {shape}, one call traced (torch.profiler): {ops['kernels']} kernel"
+             f" launches, {ops['memsets']} memsets, {ops['copies']} copies ({'; '.join(ops['names'])})")
+        require((ops["kernels"], ops["memsets"], ops["copies"]) == (1, 1, 0),
+                f"one {name} call is one kernel and one memset ({ops})")
+        stats[name].update(cuda_launches_per_call=ops["kernels"], memsets_per_call=ops["memsets"])
+
     # K1: y[n] = a y[n-1] + (1 - a) g[n], g the compressor's gain in dB
     for rows, per_sample in ((32, False), (8, False), (32, True)):
         thr, ratio, attack, knee, _ = params(rows)
@@ -260,20 +272,22 @@ def phase_kernels(form: str):
         else:
             a = _ballistics_coeff(attack, SR).contiguous()
             b = ((1.0 - a)[:, None] * g).contiguous()
-        scan1p.onepole_core.launches = 0
+        scan1p.onepole_core.launches = scan1p.onepole_core.launches_per_sample = 0
         y = scan1p.onepole_core(b, a)
         torch.cuda.synchronize()
+        launches = scan1p.onepole_core.launches_per_sample if per_sample else scan1p.onepole_core.launches
         y_plain = scan1p.onepole_core_plain(b, a)
         err = (y - y_plain).abs().max().item()
         err64 = vs64(y, y_plain, scan1p.onepole_core_plain(b.double(), a.double()))
         require(bool(torch.isfinite(y).all()), "K1 output finite")
+        require(launches == 1, f"one K1 launch ({launches})")
         require(err <= 1e-3, f"K1 {rows}x{WINDOW} agrees with its plain version in dB ({err})")
         n = rows * WINDOW
         nbytes = n * (12 if per_sample else 8) + (0 if per_sample else rows * 4)
         shape = f"{rows}x{WINDOW}" + (" alpha/sample" if per_sample else "")
-        record("onepole_core", shape, err, err64, lambda: scan1p.onepole_core(b, a),
-               lambda: scan1p.onepole_core_plain(b, a), nbytes, 2 * n,
-               scan1p.onepole_core.launches, rows == 32 and not per_sample)
+        record("onepole_core_per_sample" if per_sample else "onepole_core", shape, err, err64,
+               lambda: scan1p.onepole_core(b, a), lambda: scan1p.onepole_core_plain(b, a),
+               nbytes, 2 * n, launches, rows == 32)
 
     # K2 on the track chain (32 rows, lookahead 2048) and master (8, 1024)
     for rows, lookahead in ((32, 2048), (8, 1024)):
@@ -429,12 +443,7 @@ def phase_kernels(form: str):
             lambda: comp_fused.compressor_fused_backward(xh, xdh, p, env, dy),
     }
     for (name, shape), fn in calls.items():
-        ops = device_ops(fn)
-        line(f"[kernels] {name} {shape}, one call traced (torch.profiler): {ops['kernels']} kernel"
-             f" launches, {ops['memsets']} memsets, {ops['copies']} copies ({'; '.join(ops['names'])})")
-        require((ops["kernels"], ops["memsets"], ops["copies"]) == (1, 1, 0),
-                f"one {name} call is one kernel and one memset ({ops})")
-        stats[name].update(cuda_launches_per_call=ops["kernels"], memsets_per_call=ops["memsets"])
+        traced(name, shape, fn)
     del x, xd, xh, xdh, env, dy
 
     # K3: the release stage on the detector's and the knee's gains of
@@ -460,6 +469,34 @@ def phase_kernels(form: str):
         record("release_min_scan", f"{rows}x{WINDOW}", err, err64,
                lambda: scan1p.release_min_scan(g, a), lambda: scan1p.release_min_scan_plain(g, a),
                n * 8 + rows * 4, 5 * n, scan1p.release_min_scan.launches, rows == 32)
+
+    # K1 (a row's alpha) and K3 over 4 x (2^20 + 3) samples (257 tiles a row,
+    # the rows' starts off 16 bytes) at alpha 0.9998, against the plain
+    # versions in float64: the look-back's carries over a long row
+    rows, t = 4, 2**20 + 3
+    x = torch.randn(rows, t, device=dev, generator=gen) * torch.linspace(0.02, 1.0, t, device=dev)
+    thr, ratio, _, knee, _ = params(rows)
+    g = _static_gain_db(x / x.abs().amax(dim=-1, keepdim=True), thr, ratio, knee).contiguous()
+    alpha = torch.full((rows,), 0.9998, device=dev)
+    b = ((1.0 - alpha)[:, None] * g).contiguous()
+    y1, y3 = scan1p.onepole_core(b, alpha), scan1p.release_min_scan(g, alpha)
+    torch.cuda.synchronize()
+    long_err = {"K1": rel_err(y1, scan1p.onepole_core_plain(b.double(), alpha.double())),
+                "K3": rel_err(y3, scan1p.release_min_scan_plain(g.double(), alpha.double()))}
+    line(f"[kernels] onepole_core and release_min_scan {rows}x{t}, alpha 0.9998, against float64:"
+         f" K1 {long_err['K1']:.3g}, K3 {long_err['K3']:.3g} (of their max-abs)")
+    require(bool(torch.isfinite(y1).all() and torch.isfinite(y3).all()), "K1 and K3 long rows finite")
+    require(max(long_err.values()) <= 1e-5, f"K1 and K3 over 257 tiles a row agree with float64 ({long_err})")
+    del x, g, b, y1, y3
+
+    # What one call of K1 (a row's alpha) and of K3 puts on the card at the
+    # track chain's shape, counted in a trace of that call
+    g, a3 = release(32, WINDOW)
+    a1 = _ballistics_coeff(params(32)[2], SR).contiguous()
+    b = ((1.0 - a1)[:, None] * g).contiguous()
+    traced("onepole_core", f"32x{WINDOW}", lambda: scan1p.onepole_core(b, a1))
+    traced("release_min_scan", f"32x{WINDOW}", lambda: scan1p.release_min_scan(g, a3))
+    del g, b
 
     # K3's backward at the training shapes, on its own forward's output
     bwd = scan1p.release_min_scan_backward
@@ -850,11 +887,13 @@ def _counters():
 def reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
+    _counters()["K1"].launches_per_sample = 0
     _counters()["K1-bwd"].launches_per_sample = 0
 
 
 def read_counts() -> dict:
     counts = {k: fn.launches for k, fn in _counters().items()}
+    counts["K4"] = _counters()["K1"].launches_per_sample
     counts["K4-bwd"] = _counters()["K1-bwd"].launches_per_sample
     return counts
 
@@ -1153,13 +1192,15 @@ def phase_training_causal():
 
 
 def kernel_entry(name, source, replaces, launches, k, **extra):
-    """The kernel's entry of the JSON line; the kernel launches and memsets a
-    call, where [kernels] traced them."""
+    """The kernel's entry of the JSON line, with the achieved TB/s of the
+    bytes its function must move; the kernel launches and memsets a call,
+    where [kernels] traced them."""
     per_call = {key: k[key] for key in ("cuda_launches_per_call", "memsets_per_call") if key in k}
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                 max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
                 bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
-                max_rel_err=k["max_rel_err"], shape=k["shape"], **per_call, **extra)
+                achieved_tb_s=k["achieved_tb_s"], max_rel_err=k["max_rel_err"], shape=k["shape"],
+                **per_call, **extra)
 
 
 def main() -> int:
@@ -1207,7 +1248,10 @@ def main() -> int:
         entry("K2", "compressor_fused_gain", comp_cu, "diffmst_tpu/kernels/comp_fused.py:98"),
         entry("K1-bwd", "onepole_core_backward", scan_cu,
               "diffmst_tpu/kernels/scan1p.py:145 (onepole_scan VJP, :142-150)"),
-        # K4's backward is on no path (no smoother uses it)
+        # K4 and its backward are on no path (no smoother uses them)
+        kernel_entry("onepole_core_per_sample", scan_cu,
+                     "diffmst_tpu/kernels/scan1p.py:111 (per-sample alpha, onepole_scan_tv:160)",
+                     serving["K4"] + training["K4"], stats["onepole_core_per_sample"], on_path=False),
         kernel_entry("onepole_core_backward_per_sample", scan_cu,
                      "diffmst_tpu/kernels/scan1p.py:183 (onepole_scan_tv VJP, :176-187)",
                      train["K4-bwd"], stats["onepole_core_backward_per_sample"], on_path=False),

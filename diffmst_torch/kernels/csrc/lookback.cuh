@@ -5,7 +5,8 @@
 // The recurrence and its maps are those of scan_common.cuh: state[n] =
 // f_n(state[n-1]) from a zero state, maps composed in double precision,
 // here with a pole that is constant along a row; a Map takes part through
-// its Carry (below), so far Affine's.
+// its Carry (below): Affine's (K1 with a row's alpha, K2 and K2's backward)
+// and MinAffine's (K3).
 // scan_common.cuh reads every sample twice in three launches; here one
 // launch reads each sample once:
 //
@@ -168,8 +169,7 @@ __device__ __forceinline__ void unstage(const Tile<kItems>& tile, int a, float* 
 
 // What a tile publishes: the words of its map that vary along a row. The
 // multiplicative part of a full tile's map is the row's pole to the power
-// of the tile's length, which each reader computes itself (a MinAffine map
-// would carry d and c). The only partial
+// of the tile's length, which each reader computes itself. The only partial
 // tile of a row is the last of a forward scan (read by no tile) or the
 // first of a reverse one, which is always the earliest map of a
 // composition, whose multiplicative part no state depends on.
@@ -185,8 +185,27 @@ struct Carry<Affine> {
   }
 };
 
+// y -> min(c, a*y + d) carries d and c. Where the pole is small, a (the
+// pole to the tile's length) and the products of a over a group underflow
+// to 0; MinAffine::compose takes fmin with the product a * c, so the NaN of
+// 0 * inf (an identity's c) drops out there as it does in a block.
+template <>
+struct Carry<MinAffine> {
+  static constexpr int kWords = 2;
+  __device__ __forceinline__ static void to_words(const MinAffine& m, double* w) {
+    w[0] = m.d;
+    w[1] = m.c;
+  }
+  __device__ __forceinline__ static MinAffine from_words(const double* w, double a) {
+    return MinAffine{a, w[0], w[1]};
+  }
+};
+
 // The fill pattern of unpublished words. No arithmetic result has it (the
 // card's NaN is 0x7fff...); a word that had it is published as that NaN.
+// Neither can a carried word: an Affine's b and a MinAffine's d are finite,
+// and a MinAffine's c is a finite minimum of a full tile's inputs or, for
+// the identity, +inf (0x7ff0...).
 constexpr long long kUnset = -1LL;
 
 template <int W>

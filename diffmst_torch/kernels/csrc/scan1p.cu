@@ -1,8 +1,8 @@
 // K1: y[n] = a * y[n-1] + b[n] along time over (rows, T) float32 rows, from
-// y[-1] = 0, with `a` per row (alpha: (rows,)) or per sample (alpha: (rows, T)),
-// and its backward; and K3, the release stage of the decoupled compressor,
-// y[n] = min(g[n], a * y[n-1] + (1 - a) * g[n]) from y[-1] = 0 dB, and its
-// backward.
+// y[-1] = 0, with `a` per row (alpha: (rows,)) or per sample (alpha: (rows, T),
+// K4), and its backward; and K3, the release stage of the decoupled
+// compressor, y[n] = min(g[n], a * y[n-1] + (1 - a) * g[n]) from y[-1] = 0 dB,
+// and its backward.
 //
 // Replaces the Pallas kernels diffmst_tpu/kernels/scan1p.py::onepole_core
 // (pallas_call at scan1p.py:111) and ::minscan_core (pallas_call at
@@ -14,25 +14,109 @@
 // per-sample alpha); of its backward read dy + read y + write db, 12 bytes a
 // sample (20 with a per-sample alpha, which also reads alpha and writes
 // dalpha). K3 reads g and writes y, 8 bytes a sample; its backward reads dy,
-// y and g and writes dg, 16 bytes a sample. This first version reads the
-// inputs twice (scan_common.cuh, passes 1 and 3).
+// y and g and writes dg, 16 bytes a sample.
+//
+// K1 with a row's alpha and K3 are each one kernel and one cudaMemsetAsync a
+// call: the single-pass scan with decoupled look-back of lookback.cuh, which
+// reads every input once. A block stages a tile of kScanItems x 256 samples
+// of b (or g) in shared memory by cp.async, scans it in float64 from zero,
+// takes the state entering it from the tiles before it (K1 carries one word,
+// b; K3 two, d and c) and writes y over its input in the tile, then to
+// device memory. K4 (a per-sample alpha: the pole is not constant along a
+// row, so the carry cannot be one word) and the three backward kernels stay
+// on the three-pass chunked scan of scan_common.cuh, which reads the inputs
+// twice (passes 1 and 3).
 
-#include "scan_common.cuh"
+#include "lookback.cuh"
 
 namespace {
 
+namespace lookback = diffmst::lookback;
+
+// Samples a thread of the single-pass kernels (a tile is 256 times as many),
+// and the blocks an SM must hold, which caps the registers.
+constexpr int kScanItems = 16;
+constexpr int kScanMinBlocks = 4;
+
+// K1 with a row's alpha on the look-back: b staged, y written in its place.
+struct OnepoleTileOp {
+  using Map = diffmst::Affine;
+  using Tile = lookback::Tile<kScanItems>;
+  static constexpr bool kReverse = false;
+  static constexpr int kItems = kScanItems, kMinBlocks = kScanMinBlocks;
+  static constexpr int kIn = 1, kEarly = 1, kOut = 1;
+  const float* b;
+  const float* alpha;  // (rows,)
+  float* y;
+
+  bool aligned(int64_t T) const {
+    return T % 4 == 0 && lookback::aligned16(b) && lookback::aligned16(y);
+  }
+
+  __device__ __forceinline__ const float* input(int) const { return b; }
+  __device__ __forceinline__ float* output(int) const { return y; }
+  __device__ __forceinline__ static int out_slot(int) { return 0; }
+  __device__ __forceinline__ float params(int row) const { return __ldg(alpha + row); }
+  __device__ __forceinline__ double pole(float a) const { return a; }
+  __device__ __forceinline__ diffmst::Affine step(float a, float bv) const {
+    return diffmst::Affine{a, bv};
+  }
+  __device__ __forceinline__ void prepare(float, const Tile& tile, int i0,
+                                          float (&bv)[kItems]) const {
+    tile.read(0, i0, bv);
+  }
+  __device__ __forceinline__ void finish(float, const Tile& tile, int, int64_t, int i0, int,
+                                         const float (&yv)[kItems]) const {
+    tile.write(0, i0, yv);
+  }
+};
+
+// K3 on the look-back: g staged, y written in its place. The map of sample
+// n is y -> min(g, a*y + (1-a)*g), a MinAffine composed in double.
+struct MinScanTileOp {
+  using Map = diffmst::MinAffine;
+  using Tile = lookback::Tile<kScanItems>;
+  static constexpr bool kReverse = false;
+  static constexpr int kItems = kScanItems, kMinBlocks = kScanMinBlocks;
+  static constexpr int kIn = 1, kEarly = 1, kOut = 1;
+  const float* g;
+  const float* alpha;  // (rows,)
+  float* y;
+
+  bool aligned(int64_t T) const {
+    return T % 4 == 0 && lookback::aligned16(g) && lookback::aligned16(y);
+  }
+
+  __device__ __forceinline__ const float* input(int) const { return g; }
+  __device__ __forceinline__ float* output(int) const { return y; }
+  __device__ __forceinline__ static int out_slot(int) { return 0; }
+  __device__ __forceinline__ double params(int row) const { return __ldg(alpha + row); }
+  __device__ __forceinline__ double pole(double a) const { return a; }
+  __device__ __forceinline__ diffmst::MinAffine step(double a, float gf) const {
+    const double gv = gf;
+    return diffmst::MinAffine{a, (1.0 - a) * gv, gv};
+  }
+  __device__ __forceinline__ void prepare(double, const Tile& tile, int i0,
+                                          float (&gv)[kItems]) const {
+    tile.read(0, i0, gv);
+  }
+  __device__ __forceinline__ void finish(double, const Tile& tile, int, int64_t, int i0, int,
+                                         const float (&yv)[kItems]) const {
+    tile.write(0, i0, yv);
+  }
+};
+
+// K4 (alpha per sample) on the three-pass scan.
 struct OnepoleOp {
   using Map = diffmst::Affine;
   const float* b;
-  const float* alpha;
-  int alpha_per_sample;
+  const float* alpha;  // (rows, T)
   float* y;
   int64_t T;
 
   __device__ __forceinline__ diffmst::Affine step(int row, int64_t t) const {
     const int64_t i = (int64_t)row * T + t;
-    const float a = alpha_per_sample ? __ldg(alpha + i) : __ldg(alpha + row);
-    return diffmst::Affine{a, __ldg(b + i)};
+    return diffmst::Affine{__ldg(alpha + i), __ldg(b + i)};
   }
 
   __device__ __forceinline__ void store(int row, int64_t t, float v) const {
@@ -89,26 +173,6 @@ struct OnepoleBackwardOp {
   }
 };
 
-// K3: the map of sample n is y -> min(g, a*y + (1-a)*g), a min-affine map
-// composed in double as K1's affine maps are.
-struct MinScanOp {
-  using Map = diffmst::MinAffine;
-  const float* g;
-  const float* alpha;  // (rows,)
-  float* y;
-  int64_t T;
-
-  __device__ __forceinline__ diffmst::MinAffine step(int row, int64_t t) const {
-    const double a = __ldg(alpha + row);
-    const double gv = __ldg(g + (int64_t)row * T + t);
-    return diffmst::MinAffine{a, (1.0 - a) * gv, gv};
-  }
-
-  __device__ __forceinline__ void store(int row, int64_t t, float v) const {
-    y[(int64_t)row * T + t] = v;
-  }
-};
-
 // K3's backward. y[n] takes the linear branch a*y[n-1] + (1-a)*g[n] where
 // L[n] = y[n-1] < g[n] (y[-1] = 0), and is g[n] otherwise: a tie takes the
 // clamp. The adjoint is a reverse one-pole with a per-sample coefficient,
@@ -154,15 +218,22 @@ struct MinScanBackwardOp {
 
 }  // namespace
 
-extern "C" long long diffmst_onepole_scratch_bytes(int rows, long long T) {
-  return diffmst::scratch_bytes<OnepoleOp>(rows, T);
+// The scratch of one diffmst_onepole_core call: the look-back's with a row's
+// alpha, the three-pass scan's with a per-sample one.
+extern "C" long long diffmst_onepole_scratch_bytes(int rows, long long T, int alpha_per_sample) {
+  return alpha_per_sample ? diffmst::scratch_bytes<OnepoleOp>(rows, T)
+                          : lookback::scratch_bytes<OnepoleTileOp>(rows, T);
 }
 
 extern "C" int diffmst_onepole_core(const float* b, const float* alpha, int alpha_per_sample,
                                     float* y, void* scratch, int rows, long long T,
                                     void* stream) {
-  const OnepoleOp op{b, alpha, alpha_per_sample, y, T};
-  return diffmst::scan_rows(op, scratch, rows, T, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (alpha_per_sample) {
+    return diffmst::scan_rows(OnepoleOp{b, alpha, y, T}, scratch, rows, T, s);
+  }
+  const OnepoleTileOp op{b, alpha, y};
+  return lookback::scan_rows(op, op.aligned(T), scratch, rows, T, s);
 }
 
 extern "C" long long diffmst_onepole_backward_scratch_bytes(int rows, long long T) {
@@ -183,13 +254,14 @@ extern "C" int diffmst_onepole_backward(const float* dy, const float* alpha, int
 }
 
 extern "C" long long diffmst_minscan_scratch_bytes(int rows, long long T) {
-  return diffmst::scratch_bytes<MinScanOp>(rows, T);
+  return lookback::scratch_bytes<MinScanTileOp>(rows, T);
 }
 
 extern "C" int diffmst_release_min_scan(const float* g, const float* alpha, float* y,
                                         void* scratch, int rows, long long T, void* stream) {
-  const MinScanOp op{g, alpha, y, T};
-  return diffmst::scan_rows(op, scratch, rows, T, static_cast<cudaStream_t>(stream));
+  const MinScanTileOp op{g, alpha, y};
+  return lookback::scan_rows(op, op.aligned(T), scratch, rows, T,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" long long diffmst_minscan_backward_scratch_bytes(int rows, long long T) {

@@ -13,13 +13,22 @@ Bound on the card: memory. The least traffic is read b + write y, 8 bytes a
 sample (12 with a per-sample alpha): 67.1 MB at 32 x 262,144, about 20 us at
 the H100 SXM's 3.35 TB/s. The Pallas kernel walked time chunks in order on
 one core with its carry in VMEM and the batch on 128 lanes (B = 8 or 32 padded
-to 128). On the GPU one block per row would occupy 8-32 of 132 SMs, so the
-kernel is a three-pass chunked scan over the rows in place
-(``csrc/scan_common.cuh``): chunk totals, a scan of the totals per row, and
-a pass that applies each chunk's carry-in. It composes the maps in float64
-and rounds once, as float32, so a pole near 1 costs it no accuracy. On an
-NVIDIA H100 80GB HBM3 at 700 W it takes 0.12 ms at 32 x 262,144, six times
-the bound (``chip_smoke.py``; PERF.md).
+to 128). On the GPU one block per row would occupy 8-32 of 132 SMs, so with
+a row's alpha the kernel is the single-pass scan with decoupled look-back of
+``csrc/lookback.cuh``, as K2's: each block takes a tile of a row from an
+atomic ticket, copies b into shared memory with cp.async, scans it from zero
+in float64, takes the state entering it from the tiles before it (their
+aggregates' one word, B, published over a fill pattern) and writes y, so b
+is read once. A call is that one kernel and one cudaMemsetAsync of its
+counters. It composes the maps in float64 and rounds once, as float32, so a
+pole near 1 costs it no accuracy. On an NVIDIA H100 80GB HBM3 at 700 W it
+takes 0.039 ms at 32 x 262,144 (1.7 TB/s, twice the bound; the three-pass
+scan took 0.120) and 0.017 ms at 8 x 262,144 (PERF.md, section 6;
+``chip_smoke.py``, ``scripts/time_scan1p_cuda.py``). With a
+per-sample alpha (K4, on no path) the pole varies along the row, which a
+one-word carry cannot hold; that case stays on the three-pass chunked scan
+of ``csrc/scan_common.cuh`` (chunk totals, a scan of the totals per row, and
+a pass that applies each chunk's carry-in), which reads b and alpha twice.
 
 The backward, ``onepole_core_backward(dy, alpha, y)``, replaces the VJPs of
 ``onepole_scan`` (scan1p.py:142-150) and of ``onepole_scan_tv`` (K4,
@@ -36,11 +45,17 @@ compressor: y[n] = min(g[n], a * y[n-1] + (1 - a) * g[n]) from y[-1] = 0 dB,
 with g (B, T) float32 gains in dB and alpha (B,). It replaces the Pallas
 kernel ``diffmst_tpu/kernels/scan1p.py::minscan_core`` (pallas_call at
 scan1p.py:253) behind ``release_min_scan``:270. The maps y -> min(c, a*y +
-d) compose associatively as (A, D, C) (scan1p.py:196-199), so K3 is the same
-three-pass scan over a min-affine map, composed in float64 and rounded once:
-a float32 composition drifts at a = 0.9998 as K1's does. It reads g and
-writes y, 8 bytes a sample (20.0 us at 32 x 262,144 on an H100 SXM); on an
-NVIDIA H100 80GB HBM3 at 700 W it takes 0.12 ms there, as K1 does.
+d) compose associatively as (A, D, C) (scan1p.py:196-199), so K3 is the
+same single-pass look-back scan over a min-affine map, whose tiles publish
+two words, D and C (A is alpha to the tile's length, which each reader
+computes). It composes in float64 and rounds once: a float32 composition
+drifts at a = 0.9998 as K1's does. Where a small pole's powers underflow
+to 0, the composition takes ``fmin`` with the product of 0 and an
+identity's C = +inf, which drops that NaN. It reads g and writes y, 8 bytes a sample (20.0 us at 32 x 262,144 on
+an H100 SXM); on an NVIDIA H100 80GB HBM3 at 700 W it takes 0.047 ms there
+(1.4 TB/s; the three-pass scan took 0.121) and 0.021 ms at 8 x 262,144. Its
+map's three doubles cost it registers (64, with a few spilled) and float64
+work that K1's two do not.
 
 Its backward, ``release_min_scan_backward(dy, g, alpha, y)``, replaces the
 VJP at scan1p.py:294-297, which differentiated the XLA twin
@@ -49,7 +64,8 @@ g[n] (y[-1] = 0) and equals g[n] elsewhere, ties included (JAX's ``min``
 splits a tie's cotangent in halves instead). The adjoint is a reverse
 one-pole with the per-sample coefficient a * L[n+1]: s[n] = dy[n] + a L[n+1]
 s[n+1], dg = s ((1 - a) L + 1 - L), and dalpha = sum s L (y[n-1] - g[n]), a
-row sum. It reads dy, y and g and writes dg, 16 bytes a sample.
+row sum. It reads dy, y and g and writes dg, 16 bytes a sample. K1's and
+K3's backward kernels still run on the three-pass scan.
 
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``onepole_core_plain``, ``release_min_scan_plain`` and their backward
@@ -166,9 +182,10 @@ def onepole_core_backward_plain(dy: torch.Tensor, alpha: torch.Tensor, y: torch.
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library("scan1p.cu")
-    for fn in (lib.diffmst_onepole_scratch_bytes, lib.diffmst_onepole_backward_scratch_bytes):
-        fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
-        fn.restype = ctypes.c_longlong
+    lib.diffmst_onepole_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    lib.diffmst_onepole_scratch_bytes.restype = ctypes.c_longlong
+    lib.diffmst_onepole_backward_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.diffmst_onepole_backward_scratch_bytes.restype = ctypes.c_longlong
     lib.diffmst_onepole_core.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
@@ -210,8 +227,6 @@ def _check(b: torch.Tensor, alpha: torch.Tensor, *more: torch.Tensor) -> None:
         raise ValueError(f"b on {b.device} but alpha, dy or y elsewhere")
     if not all(t.is_contiguous() for t in (b, alpha, *more)):
         raise ValueError("onepole_core takes contiguous tensors")
-    if b.shape[0] > 65535:
-        raise ValueError(f"onepole_core takes at most 65535 rows, got {b.shape[0]}")
     if b.device.type != "cuda":
         raise ValueError(f"the onepole_core kernel runs on a CUDA device, not {b.device}")
 
@@ -230,14 +245,22 @@ def _check_rows(name: str, x: torch.Tensor, alpha: torch.Tensor, *more: torch.Te
         raise ValueError(f"{name}: inputs on {[str(t.device) for t in (x, alpha, *more)]}")
     if not all(t.is_contiguous() for t in (x, alpha, *more)):
         raise ValueError(f"{name} takes contiguous tensors")
-    if x.shape[0] > 65535:
-        raise ValueError(f"{name} takes at most 65535 rows, got {x.shape[0]}")
     if x.device.type != "cuda":
         raise ValueError(f"the {name} kernel runs on a CUDA device, not {x.device}")
 
 
+def _check_three_pass_rows(name: str, rows: int) -> None:
+    """The three-pass scan (K4, the backward kernels) runs one grid row a
+    row of the input: at most 65,535."""
+    if rows > 65535:
+        raise ValueError(f"{name} takes at most 65535 rows, got {rows}")
+
+
 def _launch(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     _check(b, alpha)
+    per_sample = alpha.ndim == 2
+    if per_sample:
+        _check_three_pass_rows("onepole_core with a per-sample alpha", b.shape[0])
     y = torch.empty_like(b)
     if b.numel() == 0:
         return y
@@ -245,19 +268,24 @@ def _launch(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     with torch.cuda.device(b.device):
         scratch = torch.empty(
-            lib.diffmst_onepole_scratch_bytes(rows, t), dtype=torch.uint8, device=b.device
+            lib.diffmst_onepole_scratch_bytes(rows, t, int(per_sample)), dtype=torch.uint8,
+            device=b.device,
         )
         err = lib.diffmst_onepole_core(
-            b.data_ptr(), alpha.data_ptr(), int(alpha.ndim == 2), y.data_ptr(),
+            b.data_ptr(), alpha.data_ptr(), int(per_sample), y.data_ptr(),
             scratch.data_ptr(), rows, t, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(lib, err, "onepole_core")
-    onepole_core.launches += 1
+    if per_sample:
+        onepole_core.launches_per_sample += 1
+    else:
+        onepole_core.launches += 1
     return y
 
 
 def _launch_backward(dy: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor):
     _check(dy, alpha, y)
+    _check_three_pass_rows("onepole_core_backward", dy.shape[0])
     db = torch.empty_like(dy)
     dalpha = torch.empty_like(alpha)
     if dy.numel() == 0:
@@ -384,6 +412,7 @@ def _launch_minscan(g: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 def _launch_minscan_backward(dy, g, alpha, y):
     _check_rows("release_min_scan_backward", dy, alpha, g, y)
+    _check_three_pass_rows("release_min_scan_backward", dy.shape[0])
     dg = torch.empty_like(dy)
     dalpha = torch.empty_like(alpha)
     if dy.numel() == 0:
@@ -437,8 +466,10 @@ def release_min_scan_backward(dy, g, alpha, y):
 
 
 # Kernel launches (CUDA calls only); callers reset them to 0 to count a run.
-# K1's backward counts its per-row (K1) and per-sample (K4) launches apart.
+# K1 and its backward count their per-row (K1) and per-sample (K4) launches
+# apart.
 onepole_core.launches = 0
+onepole_core.launches_per_sample = 0
 onepole_core_backward.launches = 0
 onepole_core_backward.launches_per_sample = 0
 release_min_scan.launches = 0

@@ -7,8 +7,8 @@ which the card's machine does not have):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Shapes are ragged on purpose: T below, at and just past one 2,048-sample
-block (K5's forward and K2's: one 4,096-sample chunk or tile; K2's
-backward: 2,048), and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 and
+block (K5's forward, K2's, K1's with a row's alpha and K3's: one 4,096-sample
+chunk or tile; K2's backward: 2,048), and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 and
 K3 (both versions compose in float64 and round once), 1e-5 on K2's audio
 and 1e-5 of K5's peak. The backward kernels are held against their plain
 versions at 1e-5 of each output's max-abs, and at 1e-4 on the per-row sums
@@ -49,10 +49,11 @@ def test_onepole_kernel_matches_plain(card, rows, t, per_sample):
         b = ((1.0 - a) * g).contiguous()
     else:
         b = ((1.0 - a)[:, None] * g).contiguous()
-    before = scan1p.onepole_core.launches
+    counter = "launches_per_sample" if per_sample else "launches"
+    before = getattr(scan1p.onepole_core, counter)
     y = scan1p.onepole_core(b, a)
     torch.cuda.synchronize()
-    assert scan1p.onepole_core.launches == before + 1
+    assert getattr(scan1p.onepole_core, counter) == before + 1
     torch.testing.assert_close(y, scan1p.onepole_core_plain(b, a), rtol=0, atol=1e-5)
 
 
@@ -316,6 +317,119 @@ def test_release_min_scan_backward_kernel_matches_plain(card, rows, t):
     dg_p, da_p = scan1p.release_min_scan_backward_plain(dy, g, a, y)
     assert _rel(dg, dg_p) <= 1e-5
     assert _rel(da, da_p) <= 1e-4
+
+
+def _scan_case(card, rows, t, seed, alpha=None):
+    """K1's input b = (1 - a) g with attacks of 1-250 ms, and K3's gains g
+    with releases of 10-250 ms (or ``alpha`` on every row of both)."""
+    gen = torch.Generator().manual_seed(seed)
+    g, a3 = _gains_db(gen, rows, t, card)
+    a1 = _alpha(gen, rows, card)
+    if alpha is not None:
+        a1, a3 = (torch.full((rows,), alpha, device=card) for _ in range(2))
+    return ((1.0 - a1)[:, None] * g).contiguous(), a1, g, a3
+
+
+def _check_scan_kernels(b, a1, g, a3, plain_dtype=torch.float32):
+    """K1 (a row's alpha) and K3, the single-pass look-back kernels, against
+    their plain versions run in ``plain_dtype``: within 1e-5 dB, or within
+    1e-5 of the max-abs against float64; one launch a call."""
+    before = (scan1p.onepole_core.launches, scan1p.release_min_scan.launches)
+    y1 = scan1p.onepole_core(b, a1)
+    y3 = scan1p.release_min_scan(g, a3)
+    torch.cuda.synchronize()
+    assert (scan1p.onepole_core.launches, scan1p.release_min_scan.launches) == (before[0] + 1,
+                                                                                before[1] + 1)
+    want1 = scan1p.onepole_core_plain(b.to(plain_dtype), a1.to(plain_dtype))
+    want3 = scan1p.release_min_scan_plain(g.to(plain_dtype), a3.to(plain_dtype))
+    for name, y, w in (("K1", y1, want1), ("K3", y3, want3)):
+        assert bool(torch.isfinite(y).all()), name
+        if plain_dtype == torch.float64:
+            assert _rel(y, w) <= 1e-5, name
+        else:
+            assert (y.double() - w.double()).abs().max().item() <= 1e-5, name
+    return y1, y3
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 4097, 4100, 10001])
+@pytest.mark.parametrize("rows", [1, 8, 33])
+def test_scan_lookback_kernels_match_plain(card, rows, t):
+    """K1 and K3 at ragged shapes: one tile or a few, the row's start off 16
+    bytes (T % 4 != 0: 4-byte copies) or on them (4100)."""
+    _check_scan_kernels(*_scan_case(card, rows, t, seed=rows * t + 21))
+
+
+def test_scan_lookback_holds_over_256_tiles_at_a_pole_of_0_9998(card):
+    """4 x (2^20 + 3) samples, 257 tiles a row at 4,096 samples, alpha 0.9998
+    on K1 and K3: the look-back's float64 carries against the plain versions
+    run in float64."""
+    _check_scan_kernels(*_scan_case(card, 4, 2**20 + 3, seed=22, alpha=0.9998),
+                        plain_dtype=torch.float64)
+
+
+def test_scan_lookback_at_a_pole_whose_powers_underflow(card):
+    """alpha 0.05 on K1 and K3: alpha^4096 is 0, so K3's look-back meets 0 *
+    inf (an identity's C), which fmin drops; 8 x 300,000 samples, 74 tiles a
+    row, two groups and a partial one."""
+    _check_scan_kernels(*_scan_case(card, 8, 300000, seed=28, alpha=0.05))
+
+
+def test_scan_lookback_runs_more_tiles_than_are_resident(card):
+    """256 x 262,144 samples: 16,384 tiles of 4,096, more than the card
+    holds at once."""
+    _check_scan_kernels(*_scan_case(card, 256, 262144, seed=23))
+
+
+def test_scan_lookback_kernels_are_deterministic(card):
+    """Three calls give bit-identical outputs."""
+    b, a1, g, a3 = _scan_case(card, 33, 100003, seed=24)
+    runs = [(scan1p.onepole_core(b, a1), scan1p.release_min_scan(g, a3)) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(u, v) for u, v in zip(runs[0], run))
+
+
+def test_scan_lookback_kernels_on_two_streams(card):
+    """Calls on two CUDA streams at once give what they give one after the
+    other: each call has its own scratch."""
+    cases = [_scan_case(card, rows, t, seed=25 + rows) for rows, t in ((32, 131072), (8, 262144))]
+
+    def run(case):
+        b, a1, g, a3 = case
+        return scan1p.onepole_core(b, a1), scan1p.release_min_scan(g, a3)
+
+    alone = [run(c) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    together = []
+    for s, c in zip(streams, cases):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            together.append(run(c))
+    torch.cuda.synchronize()
+    for a, b in zip(alone, together):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_scan_lookback_takes_more_than_65535_rows(card):
+    """70,000 rows of 5 samples: one tile a row, a one-dimensional grid."""
+    _check_scan_kernels(*_scan_case(card, 70000, 5, seed=26))
+
+
+def test_scan_lookback_is_one_kernel_and_one_memset_a_call(card):
+    """A trace of one call of K1 (a row's alpha) and of K3 shows one kernel
+    launch, one memset and no copy each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, a1, g, a3 = _scan_case(card, 8, 10001, seed=27)
+    for fn in (lambda: scan1p.onepole_core(b, a1), lambda: scan1p.release_min_scan(g, a3)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        memsets = [n for n in names if n.startswith("Memset")]
+        assert len(memsets) == 1 and len(names) == 2 and not any(n.startswith("Memcpy") for n in names), names
 
 
 def _sections(gen, rows, dev, low_shelf_hz=None):

@@ -227,64 +227,86 @@ def test_backward_wrappers_take_plain_version_on_cpu():
     assert comp_fused.compressor_fused_backward.launches == 0
 
 
-def _compose(f, t):
+def _affine(f, t):
     """(A, B) of "apply f, then t" for maps y -> A y + B."""
     return f[0] * t[0], t[0] * f[1] + t[1]
 
 
-def _warp_tree(a, b):
+def _min_affine(f, t):
+    """(A, D, C) of "apply f, then t" for maps y -> min(C, A y + D), fmin
+    dropping the NaN of an underflowed A times an identity's C = +inf, as
+    the kernels' MinAffine::compose does."""
+    with np.errstate(invalid="ignore"):
+        return f[0] * t[0], t[0] * f[1] + t[1], np.fmin(t[2], t[0] * f[2] + t[1])
+
+
+# Each map family of the look-back: its compose, its application to a
+# state and its identity.
+AFFINE = (_affine, lambda m, y: m[0] * y + m[1], (1.0, 0.0))
+MIN_AFFINE = (_min_affine, lambda m, y: np.fmin(m[2], m[0] * y + m[1]), (1.0, 0.0, np.inf))
+
+
+def _warp_tree(m, compose):
     """The look-back warp's fixed tree over 32 lanes (higher lanes earlier in
-    time): lane l takes lane l + d before it, d = 1, 2, ..., 16; lane 0's map."""
-    a, b = a.copy(), b.copy()
+    time), maps given as tuples of (rows, 32) components: lane l takes lane
+    l + d before it, d = 1, 2, ..., 16; lane 0's map."""
+    m = tuple(c.copy() for c in m)
     for d in (1, 2, 4, 8, 16):
-        a[:, : 32 - d], b[:, : 32 - d] = _compose((a[:, d:], b[:, d:]), (a[:, : 32 - d], b[:, : 32 - d]))
-    return a[:, 0], b[:, 0]
+        new = compose(tuple(c[:, d:] for c in m), tuple(c[:, : 32 - d] for c in m))
+        for c, n in zip(m, new):
+            c[:, : 32 - d] = n
+    return tuple(c[:, 0] for c in m)
 
 
-def _lookback_scan(b, alpha, tile, reverse):
-    """y[n] = alpha y[n-1] + b[n] from 0 (or the adjoint, backwards in time),
-    float64, in the order of the single-pass kernels (kernels/csrc/lookback.cuh):
-    scan-order tiles of `tile` samples (reversed: the partial chunk at the
-    row's end comes first), each scanned from zero; each tile's entering
-    state from the state entering its group of 32 tiles, which the group's
-    last tile publishes, and the aggregates before it in the group, in the
-    warp's tree; the multiplicative part of a read aggregate alpha^tile by
-    squaring. Returns the states in forward time and the scan-order tiles."""
-    rows, t = b.shape
+def _lookback_scan(maps, pole, tile, reverse, kind=AFFINE):
+    """The states of a first-order recurrence from 0 (or its adjoint,
+    backwards in time), float64, in the order of the single-pass kernels
+    (kernels/csrc/lookback.cuh). ``maps`` holds the per-sample map's
+    components (each broadcast to (rows, T), the multiplicative one first)
+    of the family ``kind`` (AFFINE or MIN_AFFINE); ``pole`` (rows,) is the
+    row's pole. Scan-order tiles of `tile` samples (reversed: the partial
+    chunk at the row's end comes first), each composed from the identity;
+    each tile's entering state from the state entering its group of 32
+    tiles, which the group's last tile publishes, and the aggregates before
+    it in the group, in the warp's tree; the multiplicative part of a read
+    aggregate or group state pole^tile by squaring, of the tile's own
+    aggregate its product. Returns the states in forward time and the
+    number of tiles."""
+    compose, apply, ident = kind
+    rows, t = np.broadcast_shapes(*(np.shape(c) for c in maps))
     nt = -(-t // tile)
     pad = nt * tile - t
-    ones, poles = np.ones((rows, pad)), np.broadcast_to(alpha[:, None], (rows, t))
-    if reverse:  # the padding (identity maps) leads the scan
-        a_n, b_n = np.concatenate([ones, poles], 1), np.concatenate([0 * ones, b[:, ::-1]], 1)
-    else:
-        a_n, b_n = np.concatenate([poles, ones], 1), np.concatenate([b, 0 * ones], 1)
-    a_n, b_n = a_n.reshape(rows, nt, tile), b_n.reshape(rows, nt, tile)
 
-    def run(start):
-        y, out = start, np.empty_like(b_n)
-        for i in range(tile):
-            y = a_n[:, :, i] * y + b_n[:, :, i]
-            out[:, :, i] = y
-        return out
+    def lay(c, v):  # scan order, identity maps in the padding
+        c, fill = np.broadcast_to(c, (rows, t)), np.full((rows, pad), v)
+        c = np.concatenate([fill, c[:, ::-1]], 1) if reverse else np.concatenate([c, fill], 1)
+        return c.reshape(rows, nt, tile)
 
-    agg = run(np.zeros((rows, nt)))[:, :, -1]  # each tile's B from zero
-    a_tile = alpha.copy()
+    m_n = tuple(lay(c, v) for c, v in zip(maps, ident))
+    agg = tuple(np.full((rows, nt), float(v)) for v in ident)
+    for i in range(tile):
+        agg = compose(agg, tuple(c[:, :, i] for c in m_n))
+    a_tile = pole.astype(np.float64)
     for _ in range(int(np.log2(tile))):
         a_tile = a_tile * a_tile
+    identity = tuple(np.full((rows, 32), float(v)) for v in ident)
     prefix, entering = {}, np.empty((rows, nt))
     for j in range(nt):
         q, r = divmod(j, 32)
-        mb = np.zeros((rows, 32))
-        mb[:, :r] = agg[:, j - 1 - np.arange(r)]
-        ma = np.where(np.arange(32) < r, a_tile[:, None], 1.0)
-        g = (a_tile, prefix[q]) if q else (np.ones(rows), np.zeros(rows))
-        entering[:, j] = _compose(g, _warp_tree(ma, mb))[1]
+        m = tuple(c.copy() for c in identity)  # lane l < r: tile j-1-l of the group
+        m[0][:, :r] = a_tile[:, None]
+        for c, a in zip(m[1:], agg[1:]):
+            c[:, :r] = a[:, j - 1 - np.arange(r)]
+        g = (a_tile, *prefix[q]) if q else tuple(c[:, 0] for c in identity)
+        entering[:, j] = apply(compose(g, _warp_tree(m, compose)), 0.0)
         if r == 31 and j + 1 < nt:  # the state entering the next group
-            ga, gb = ma.copy(), np.zeros((rows, 32))
-            ga[:, 0], gb[:, 0], gb[:, 1:] = alpha**tile, agg[:, j], mb[:, :31]
-            ga[:, 1:] = a_tile[:, None]
-            prefix[q + 1] = _compose(g, _warp_tree(ga, gb))[1]
-    y = run(entering).reshape(rows, nt * tile)
+            up = tuple(np.concatenate([a[:, j, None], c[:, :31]], 1) for c, a in zip(m, agg))
+            prefix[q + 1] = compose(g, _warp_tree(up, compose))[1:]
+    y, out = entering, np.empty((rows, nt, tile))
+    for i in range(tile):
+        y = apply(tuple(c[:, :, i] for c in m_n), y)
+        out[:, :, i] = y
+    y = out.reshape(rows, nt * tile)
     y = y[:, pad:][:, ::-1] if reverse else y[:, :t]
     return y, nt
 
@@ -329,14 +351,14 @@ def test_compressor_lookback_decomposition_matches_plain(direction, tile, t):
     b = torch.from_numpy((1.0 - alpha)[:, None] * g_c)
     env_plain = scan1p.onepole_core_plain(b, torch.from_numpy(alpha))
     if direction == "forward":
-        env, _ = _lookback_scan((1.0 - alpha)[:, None] * g_c, alpha, tile, reverse=False)
+        env, _ = _lookback_scan((alpha[:, None], (1.0 - alpha)[:, None] * g_c), alpha, tile, reverse=False)
         _rel_close(env, env_plain.numpy(), 1e-12, "g_s")
         return
     dy = rng.normal(size=(rows, t))
     env = env_plain.numpy()
     dxd = dy * np.exp(k * (env + makeup))
     u = dxd * xd * k
-    s, nt = _lookback_scan(u, alpha, tile, reverse=True)
+    s, nt = _lookback_scan((alpha[:, None], u), alpha, tile, reverse=True)
     dg = (1.0 - alpha)[:, None] * s
     dx = np.where(np.abs(x) > eps, dg * d_over / (k * x), 0.0)
     g_prev = np.pad(env[:, :-1], ((0, 0), (1, 0)))
@@ -355,6 +377,48 @@ def test_compressor_lookback_decomposition_matches_plain(direction, tile, t):
         *(torch.from_numpy(a) for a in (x, xd, params, env, dy)), eps)
     for name, got, w in zip(("dx", "dx_delayed", "dparams"), (dx, dxd, np.stack(sums)), want):
         _rel_close(got, w.numpy(), 1e-12, name)
+
+
+_SCAN_TILE = 4096  # samples a tile of K1 and K3 (kernels/csrc/scan1p.cu: 256 x kScanItems)
+
+
+@pytest.mark.parametrize("tile,t", [(_SCAN_TILE, 10001), (16, 5000)], ids=["tile_k1", "tile16_313"])
+def test_onepole_lookback_decomposition_matches_plain(tile, t):
+    """The algebra of K1's single-pass kernel (a row's alpha), emulated in
+    float64 as for K2: affine maps, one carried word a tile. Held against
+    onepole_core_plain at 1e-12 of its max-abs; one row at alpha 0.9998 and
+    one at an attack pole, on gains in dB, at K1's tile and T = 10,001 (a
+    partial last tile) and at 16-sample tiles over 313 tiles (groups)."""
+    rng = np.random.default_rng(42)
+    alpha = np.array([0.9998, _attack_alpha(rng, 1)[0]], np.float32).astype(np.float64)
+    b = (1.0 - alpha)[:, None] * rng.uniform(-40.0, 0.0, size=(2, t))
+    y, _ = _lookback_scan((alpha[:, None], b), alpha, tile, reverse=False)
+    _rel_close(y, scan1p.onepole_core_plain(torch.from_numpy(b), torch.from_numpy(alpha)).numpy(),
+               1e-12, "y")
+
+
+@pytest.mark.parametrize("tile,t", [(_SCAN_TILE, 10001), (16, 5000)], ids=["tile_k3", "tile16_313"])
+def test_minscan_lookback_decomposition_matches_plain(tile, t):
+    """The algebra of K3's single-pass kernel, emulated in float64: min-affine
+    maps (A, D, C) carried as the two words (D, C) with A = alpha^tile by
+    squaring, through the group states and the warp's tree, the partial last
+    tile included. Held against release_min_scan_plain at 1e-12 of its
+    max-abs. Rows: a release pole of 0.9998; one of 10 ms; a pole of 0.05,
+    whose powers underflow to 0 over a tile or a group, so that 0 * inf
+    (an identity's C) meets fmin; and gains held equal over long stretches,
+    so that y[n-1] == g[n] (ties)."""
+    rng = np.random.default_rng(43)
+    alpha = np.array([0.9998, np.exp(-np.log(9.0) / (SR * 0.010)), 0.05, 0.999],
+                     np.float32).astype(np.float64)
+    g = -30.0 * rng.uniform(size=(4, t)) ** 2
+    g[:, : t // 5] = 0.0  # below the threshold: 0 dB, the state's start
+    g[3] = np.repeat(rng.uniform(-24.0, 0.0, size=-(-t // 700)), 700)[:t]  # steps of 700 samples
+    y, _ = _lookback_scan((alpha[:, None], (1.0 - alpha)[:, None] * g, g), alpha, tile,
+                          reverse=False, kind=MIN_AFFINE)
+    want = scan1p.release_min_scan_plain(torch.from_numpy(g), torch.from_numpy(alpha)).numpy()
+    assert np.isfinite(y).all()
+    assert (np.pad(y[3, :-1], (1, 0)) == g[3]).sum() > t // 10  # ties
+    _rel_close(y, want, 1e-12, "y")
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu():
