@@ -7,16 +7,18 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
 ``build/diffmst_torch_kernels/`` at first use. Phases:
 
   1. device: the card's name and power limit;
-  2. build: every kernel, timed, with ptxas's registers and spills;
+  2. build: every kernel, timed, with ptxas's registers and spills by
+     kernel;
   3. kernels: K1 (one-pole scan; with a per-sample alpha, K4), K2 (fused
      compressor), K3 (release min-scan) and K5 (biquad cascade) at the
      serving shapes, and their backward kernels (K1's with a per-row and, as
      K4's, a per-sample alpha; K2's, with the envelope that K2's forward
      writes for it) at the training shapes, against their plain PyTorch
-     versions, with times, achieved TB/s and bounds; K2 and its backward, K1
-     (a row's alpha) and K3 (one single-pass kernel each) also over 4 rows
-     of 2^20 + 3 samples at a pole of 0.9998 against float64, and one call
-     of each traced with torch.profiler (one kernel and one memset a call);
+     versions, with times, achieved TB/s and bounds; K2, K1 (a row's alpha),
+     K3 and their backward kernels (one single-pass kernel each) also over
+     4 rows of 2^20 + 3 samples at a pole of 0.9998 against float64, and
+     one call of each traced with torch.profiler (one kernel and one memset
+     a call);
      K5 also against scipy.signal.sosfilt in float64 at a 20 Hz
      high-Q low shelf, its time split by its three kernels (chunk, carry,
      apply; CUDA events), and the stages it writes for its backward
@@ -61,6 +63,8 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -164,6 +168,32 @@ def phase_device():
     return name, smi, form
 
 
+def _kernel_names(mangled: list[str]) -> list[str]:
+    """Short names of mangled kernel names (``scan_tiles<OnepoleTileOp,
+    true>``), by the toolkit's cu++filt; the mangled ones where it is
+    missing."""
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    if filt is None:
+        return mangled
+    out = subprocess.run([filt], input="\n".join(mangled), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    if len(out) != len(mangled):
+        return mangled
+    names = []
+    for n in out:
+        n = n.replace("(anonymous namespace)::", "").replace("diffmst::", "")
+        n = re.sub(r"^void ", "", n)
+        depth, cut = 0, len(n)
+        for i, ch in enumerate(n):  # drop the parameter list after the template arguments
+            depth += ch == "<"
+            depth -= ch == ">"
+            if ch == "(" and depth == 0:
+                cut = i
+                break
+        names.append(n[:cut])
+    return names
+
+
 def phase_build():
     from diffmst_torch.kernels import _build
 
@@ -171,9 +201,17 @@ def phase_build():
     libs = _build.build_kernels()
     line(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
     for src, log in sorted(_build.build_log.items()):
+        kernels, current = [], None  # [mangled name, registers, spills]
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                line(f"[build] {src}: {ln.strip()[:150]}")
+            if "Function properties for " in ln:
+                current = [ln.split("Function properties for ")[1].strip(), "", ""]
+                kernels.append(current)
+            elif current is not None and "spill" in ln:
+                current[2] = ln.strip()
+            elif current is not None and "registers" in ln:
+                current[1] = ln.split("Used ")[-1].strip()
+        for name, (_, regs, spills) in zip(_kernel_names([k[0] for k in kernels]), kernels):
+            line(f"[build] {src}: {name[:90]}: {regs}; {spills}")
 
 
 def _static_gain_db(x, thr, ratio, knee):
@@ -352,6 +390,8 @@ def phase_kernels(form: str):
         record(name, shape, abs_err(((db, db_p), (da, da_p))), None,
                lambda: bwd(dy, a, y), lambda: scan1p.onepole_core_backward_plain(dy, a, y),
                nbytes, 4 * n, launches, rows == 32, rel)
+        if rows == 32 and not per_sample:  # the single-pass kernel
+            traced(name, shape, lambda: bwd(dy, a, y))
 
     # K2's backward on the track chain (32 rows, lookahead 2048) and master (8, 1024)
     bwd = comp_fused.compressor_fused_backward
@@ -470,24 +510,37 @@ def phase_kernels(form: str):
                lambda: scan1p.release_min_scan(g, a), lambda: scan1p.release_min_scan_plain(g, a),
                n * 8 + rows * 4, 5 * n, scan1p.release_min_scan.launches, rows == 32)
 
-    # K1 (a row's alpha) and K3 over 4 x (2^20 + 3) samples (257 tiles a row,
-    # the rows' starts off 16 bytes) at alpha 0.9998, against the plain
-    # versions in float64: the look-back's carries over a long row
+    # K1 (a row's alpha), K3 and their backward kernels over 4 x (2^20 + 3)
+    # samples (257 tiles a row at 4,096, the rows' starts off 16 bytes) at
+    # alpha 0.9998, against the plain versions in float64: the look-back's
+    # carries over a long row
     rows, t = 4, 2**20 + 3
     x = torch.randn(rows, t, device=dev, generator=gen) * torch.linspace(0.02, 1.0, t, device=dev)
     thr, ratio, _, knee, _ = params(rows)
     g = _static_gain_db(x / x.abs().amax(dim=-1, keepdim=True), thr, ratio, knee).contiguous()
     alpha = torch.full((rows,), 0.9998, device=dev)
     b = ((1.0 - alpha)[:, None] * g).contiguous()
+    dy = torch.randn(rows, t, device=dev, generator=gen)
     y1, y3 = scan1p.onepole_core(b, alpha), scan1p.release_min_scan(g, alpha)
+    bwd1 = scan1p.onepole_core_backward(dy, alpha, y1)
+    bwd3 = scan1p.release_min_scan_backward(dy, g, alpha, y3)
     torch.cuda.synchronize()
+    d64 = [v.double() for v in (dy, alpha, g, y1, y3)]
+    want1 = scan1p.onepole_core_backward_plain(d64[0], d64[1], d64[3])
+    want3 = scan1p.release_min_scan_backward_plain(d64[0], d64[2], d64[1], d64[4])
     long_err = {"K1": rel_err(y1, scan1p.onepole_core_plain(b.double(), alpha.double())),
-                "K3": rel_err(y3, scan1p.release_min_scan_plain(g.double(), alpha.double()))}
-    line(f"[kernels] onepole_core and release_min_scan {rows}x{t}, alpha 0.9998, against float64:"
-         f" K1 {long_err['K1']:.3g}, K3 {long_err['K3']:.3g} (of their max-abs)")
-    require(bool(torch.isfinite(y1).all() and torch.isfinite(y3).all()), "K1 and K3 long rows finite")
-    require(max(long_err.values()) <= 1e-5, f"K1 and K3 over 257 tiles a row agree with float64 ({long_err})")
-    del x, g, b, y1, y3
+                "K3": rel_err(y3, scan1p.release_min_scan_plain(g.double(), alpha.double())),
+                "K1-bwd db": rel_err(bwd1[0], want1[0]), "K3-bwd dg": rel_err(bwd3[0], want3[0])}
+    sums_err = {"K1-bwd dalpha": rel_err(bwd1[1], want1[1]), "K3-bwd dalpha": rel_err(bwd3[1], want3[1])}
+    line(f"[kernels] onepole_core, release_min_scan and their backward kernels {rows}x{t}, alpha"
+         f" 0.9998, against float64 (of their max-abs): "
+         + ", ".join(f"{k} {v:.3g}" for k, v in {**long_err, **sums_err}.items()))
+    require(all(bool(torch.isfinite(v).all()) for v in (y1, y3, *bwd1, *bwd3)),
+            "K1, K3 and their backward kernels' long rows finite")
+    require(max(long_err.values()) <= 1e-5,
+            f"K1, K3 and their backward kernels over 257 tiles a row agree with float64 ({long_err})")
+    require(max(sums_err.values()) <= 1e-4, f"their dalpha row sums agree with float64 ({sums_err})")
+    del x, g, b, dy, y1, y3, bwd1, bwd3, d64, want1, want3
 
     # What one call of K1 (a row's alpha) and of K3 puts on the card at the
     # track chain's shape, counted in a trace of that call
@@ -519,6 +572,8 @@ def phase_kernels(form: str):
         record("release_min_scan_backward", f"{rows}x{HALF}", abs_err(((dg, dg_p), (da, da_p))), None,
                lambda: bwd(dy, g, a, y), lambda: scan1p.release_min_scan_backward_plain(dy, g, a, y),
                n * 16 + rows * 8, 7 * n, bwd.launches, rows == 32, rel)
+        if rows == 32:
+            traced("release_min_scan_backward", f"32x{HALF}", lambda: bwd(dy, g, a, y))
 
     # K5: the console's six-band EQ, parameters drawn over its ranges
     for rows in (32, 8):

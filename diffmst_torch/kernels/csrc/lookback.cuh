@@ -4,9 +4,10 @@
 //
 // The recurrence and its maps are those of scan_common.cuh: state[n] =
 // f_n(state[n-1]) from a zero state, maps composed in double precision,
-// here with a pole that is constant along a row; a Map takes part through
-// its Carry (below): Affine's (K1 with a row's alpha, K2 and K2's backward)
-// and MinAffine's (K3).
+// here with a pole that is constant along a row or, for a GatedAffine, a
+// coefficient that an Op gives each sample; a Map takes part through its
+// Carry (below): Affine's (K1 with a row's alpha and its backward, K2 and
+// K2's backward), MinAffine's (K3) and GatedAffine's (K3's backward).
 // scan_common.cuh reads every sample twice in three launches; here one
 // launch reads each sample once:
 //
@@ -53,6 +54,11 @@
 //   void prepare(const Params&, const Tile&, int i0, float (&b)[kItems])
 //       reads the early arrays at the thread's items i0 .. i0+kItems-1 of
 //       the tile and gives each item's b; may write into the tile's items
+// An Op that declares `static constexpr bool kCoef = true` gives each item a
+// coefficient c beside b, and takes it in step:
+//   void prepare(const Params&, const Tile&, int row, int64_t t, int i0,
+//                float (&b)[kItems], float (&c)[kItems])
+//   Map step(const Params&, float b, float c)
 //   void finish(const Params&, const Tile&, int row, int64_t t, int i0,
 //               int n, const float (&y)[kItems][, double* sums])
 //       gets the states of the thread's n valid items (t: the first's
@@ -168,11 +174,17 @@ __device__ __forceinline__ void unstage(const Tile<kItems>& tile, int a, float* 
 }
 
 // What a tile publishes: the words of its map that vary along a row. The
-// multiplicative part of a full tile's map is the row's pole to the power
-// of the tile's length, which each reader computes itself. The only partial
-// tile of a row is the last of a forward scan (read by no tile) or the
-// first of a reverse one, which is always the earliest map of a
-// composition, whose multiplicative part no state depends on.
+// multiplicative part of a full tile's map of Affine or MinAffine is the
+// row's pole to the power of the tile's length, which each reader computes
+// itself. The only partial tile of a row is the last of a forward scan
+// (read by no tile) or the first of a reverse one, which is always the
+// earliest map of a composition, whose multiplicative part no state depends
+// on. A GatedAffine's multiplicative part is a product of per-sample
+// coefficients, which no reader can compute: its tiles publish it as a
+// word, and its from_words ignores the pole. The state entering a group is
+// published as the same words: only its additive part reaches a state
+// (maps there are applied to the zero state), but its multiplicative part
+// is finite, so 0 times it is 0.
 template <class Map>
 struct Carry;
 
@@ -201,11 +213,35 @@ struct Carry<MinAffine> {
   }
 };
 
+// y -> a*y + b with a per-sample a (K3's backward, whose coefficient is 0
+// wherever the next sample took the clamp): Affine's compose and apply, a
+// type of its own for its Carry.
+struct GatedAffine : Affine {
+  __device__ __forceinline__ static GatedAffine identity() { return {Affine::identity()}; }
+  __device__ __forceinline__ static GatedAffine compose(GatedAffine first, GatedAffine then) {
+    return {Affine::compose(first, then)};
+  }
+};
+
+// y -> a*y + b carries a and b.
+template <>
+struct Carry<GatedAffine> {
+  static constexpr int kWords = 2;
+  __device__ __forceinline__ static void to_words(const GatedAffine& m, double* w) {
+    w[0] = m.a;
+    w[1] = m.b;
+  }
+  __device__ __forceinline__ static GatedAffine from_words(const double* w, double) {
+    return {Affine{w[0], w[1]}};
+  }
+};
+
 // The fill pattern of unpublished words. No arithmetic result has it (the
 // card's NaN is 0x7fff...); a word that had it is published as that NaN.
 // Neither can a carried word: an Affine's b and a MinAffine's d are finite,
-// and a MinAffine's c is a finite minimum of a full tile's inputs or, for
-// the identity, +inf (0x7ff0...).
+// a MinAffine's c is a finite minimum of a full tile's inputs or, for the
+// identity, +inf (0x7ff0...), and a GatedAffine's a is a product of poles
+// and zeros in [0, 1].
 constexpr long long kUnset = -1LL;
 
 template <int W>
@@ -424,6 +460,23 @@ __device__ __forceinline__ void row_sums(const double* partials, long long nt, d
   }
 }
 
+// Op::kCoef, or false for an Op that declares none.
+template <class Op, class = void>
+struct op_coef : std::false_type {};
+template <class Op>
+struct op_coef<Op, std::void_t<decltype(Op::kCoef)>> : std::bool_constant<Op::kCoef> {};
+
+// The map of item i: from its b, and its c for an Op with a coefficient.
+template <class Op, class P, int N, int M>
+__device__ __forceinline__ op_map<Op> item_map(const Op& op, const P& p, const float (&b)[N],
+                                               const float (&c)[M], int i) {
+  if constexpr (op_coef<Op>::value) {
+    return op.step(p, b[i], c[i]);
+  } else {
+    return op.step(p, b[i]);
+  }
+}
+
 template <class Op, bool kVec>
 __global__ void __launch_bounds__(kTileThreads, Op::kMinBlocks)
 scan_tiles(Op op, Scratch<op_map<Op>, op_sums<Op>::value> s, int rows, int64_t T, long long nt,
@@ -466,14 +519,19 @@ scan_tiles(Op op, Scratch<op_map<Op>, op_sums<Op>::value> s, int rows, int64_t T
   const int i0 = place * kItems;
   const int n = valid - i0 <= 0 ? 0 : (valid - i0 >= kItems ? kItems : valid - i0);
   float b[kItems];
-  op.prepare(p, tile, i0, b);
+  float c[op_coef<Op>::value ? kItems : 1];
+  if constexpr (op_coef<Op>::value) {
+    op.prepare(p, tile, row, tile_t0 + i0, i0, b, c);
+  } else {
+    op.prepare(p, tile, i0, b);
+  }
 
   // this thread's map, its items in scan order
   Map acc = Map::identity();
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int i = kRev ? kItems - 1 - k : k;
-    if (i < n) acc = Map::compose(acc, op.step(p, b[i]));
+    if (i < n) acc = Map::compose(acc, item_map(op, p, b, c, i));
   }
   Map aggregate;
   const Map before = block_scan(acc, &aggregate);
@@ -486,7 +544,7 @@ scan_tiles(Op op, Scratch<op_map<Op>, op_sums<Op>::value> s, int rows, int64_t T
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int i = kRev ? kItems - 1 - k : k;
-    if (i < n) y = op.step(p, b[i]).apply(y);
+    if (i < n) y = item_map(op, p, b, c, i).apply(y);
     ys[i] = (float)y;
   }
   double sums[S > 0 ? S : 1] = {};
@@ -553,7 +611,7 @@ int scan_rows(const Op& op, bool aligned, void* scratch, int rows, int64_t T, cu
   const unsigned grid = (unsigned)(rows * nt);
   const int smem = Op::kIn * tile_of<Op>() * (int)sizeof(float);
   auto kernel = aligned ? scan_tiles<Op, true> : scan_tiles<Op, false>;
-  if (smem > 48 * 1024) {
+  if (smem >= 48 * 1024) {  // 48 KB and the static shared memory need the opt-in
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }

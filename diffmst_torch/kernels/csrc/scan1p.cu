@@ -16,16 +16,18 @@
 // dalpha). K3 reads g and writes y, 8 bytes a sample; its backward reads dy,
 // y and g and writes dg, 16 bytes a sample.
 //
-// K1 with a row's alpha and K3 are each one kernel and one cudaMemsetAsync a
-// call: the single-pass scan with decoupled look-back of lookback.cuh, which
-// reads every input once. A block stages a tile of kScanItems x 256 samples
-// of b (or g) in shared memory by cp.async, scans it in float64 from zero,
-// takes the state entering it from the tiles before it (K1 carries one word,
-// b; K3 two, d and c) and writes y over its input in the tile, then to
-// device memory. K4 (a per-sample alpha: the pole is not constant along a
-// row, so the carry cannot be one word) and the three backward kernels stay
-// on the three-pass chunked scan of scan_common.cuh, which reads the inputs
-// twice (passes 1 and 3).
+// K1 with a row's alpha, K3 and their backward kernels are each one kernel
+// and one cudaMemsetAsync a call: the single-pass scan with decoupled
+// look-back of lookback.cuh, which reads every input once. A block stages a
+// tile of 256 x kItems samples of its inputs in shared memory by cp.async,
+// scans it in float64 from zero, takes the state entering it from the tiles
+// before it (K1 and K1's backward carry one word, b; K3 two, d and c; K3's
+// backward two, a and b: its coefficient a * L[n+1] varies by sample) and
+// writes its output over an input in the tile, then to device memory. The
+// backward kernels walk the tiles from the row's end, and the last tile of
+// each row adds the row's dalpha partials. K4 (a per-sample alpha) and its
+// backward stay on the three-pass chunked scan of scan_common.cuh, which
+// reads the inputs twice (passes 1 and 3).
 
 #include "lookback.cuh"
 
@@ -34,7 +36,8 @@ namespace {
 namespace lookback = diffmst::lookback;
 
 // Samples a thread of the single-pass kernels (a tile is 256 times as many),
-// and the blocks an SM must hold, which caps the registers.
+// and the blocks an SM must hold, which caps the registers. The backward
+// kernels stage two and three arrays, 32 and 48 KB a tile.
 constexpr int kScanItems = 16;
 constexpr int kScanMinBlocks = 4;
 
@@ -124,95 +127,166 @@ struct OnepoleOp {
   }
 };
 
-// The adjoint of the one-pole, run backwards in time: s[n] = dy[n] +
-// a[n+1] * s[n+1], walked as t = T-1-n. Gives db = s and dalpha = s[n] *
-// y[n-1], per sample, or summed over the row (kSums = 1) for a row's alpha.
-// With a per-sample alpha the coefficient of step t is a[n+1]; the first
-// step (n = T-1) multiplies the zero state, so its coefficient is moot.
-template <bool kPerSample>
-struct OnepoleBackwardOp {
+// K1's backward with a row's alpha on the look-back, run backwards in time:
+// s[n] = dy[n] + a * s[n+1] from s[T] = 0; db = s and dalpha = sum_n s[n] *
+// y[n-1] (y[-1] = 0), a row sum. dy staged before the scan, y after; db
+// written in dy's place. y[n-1] of a tile's first sample is the tile
+// before's last, read from device memory.
+struct OnepoleBackwardTileOp {
   using Map = diffmst::Affine;
-  static constexpr int kSums = kPerSample ? 0 : 1;
+  using Tile = lookback::Tile<kScanItems>;
+  static constexpr bool kReverse = true;
+  static constexpr int kSums = 1;
+  static constexpr int kItems = kScanItems, kMinBlocks = kScanMinBlocks;
+  static constexpr int kIn = 2, kEarly = 1, kOut = 1;
   const float* dy;
-  const float* alpha;
+  const float* alpha;  // (rows,)
   const float* y;
   float* db;
-  float* dalpha;  // (rows, T) per sample; unused per row (the sums are)
+  int64_t T;
+
+  bool aligned() const {
+    return T % 4 == 0 && lookback::aligned16(dy) && lookback::aligned16(y) &&
+           lookback::aligned16(db);
+  }
+
+  __device__ __forceinline__ const float* input(int a) const { return a == 0 ? dy : y; }
+  __device__ __forceinline__ float* output(int) const { return db; }
+  __device__ __forceinline__ static int out_slot(int) { return 0; }
+  __device__ __forceinline__ float params(int row) const { return __ldg(alpha + row); }
+  __device__ __forceinline__ double pole(float a) const { return a; }
+  __device__ __forceinline__ diffmst::Affine step(float a, float d) const {
+    return diffmst::Affine{a, d};
+  }
+  __device__ __forceinline__ void prepare(float, const Tile& tile, int i0,
+                                          float (&d)[kItems]) const {
+    tile.read(0, i0, d);
+  }
+  __device__ __forceinline__ void finish(float, const Tile& tile, int row, int64_t t, int i0,
+                                         int n, const float (&s)[kItems], double* sums) const {
+    float yv[kItems];
+    tile.read(1, i0, yv);
+    const float y_before =
+        i0 > 0 ? tile.get(1, i0 - 1) : (t > 0 ? __ldg(y + (int64_t)row * T + t - 1) : 0.0f);
+    float part = 0.0f;  // the thread's items in float, the threads and tiles in double
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      if (i < n) part += s[i] * (i > 0 ? yv[i - 1] : y_before);
+    }
+    sums[0] += (double)part;
+    tile.write(0, i0, s);
+  }
+};
+
+// K4's backward, the adjoint of the one-pole with a per-sample alpha, on the
+// three-pass scan, run backwards in time: s[n] = dy[n] + a[n+1] * s[n+1],
+// walked as t = T-1-n; db = s and dalpha = s[n] * y[n-1], per sample. The
+// first step (n = T-1) multiplies the zero state, so its coefficient is
+// moot.
+struct OnepoleBackwardOp {
+  using Map = diffmst::Affine;
+  const float* dy;
+  const float* alpha;  // (rows, T)
+  const float* y;
+  float* db;
+  float* dalpha;  // (rows, T)
   int64_t T;
 
   __device__ __forceinline__ diffmst::Affine step(int row, int64_t t) const {
     const int64_t n = T - 1 - t;
     const int64_t i = (int64_t)row * T + n;
-    float a;
-    if constexpr (kPerSample) {
-      a = n + 1 < T ? __ldg(alpha + i + 1) : 1.0f;
-    } else {
-      a = __ldg(alpha + row);
-    }
+    const float a = n + 1 < T ? __ldg(alpha + i + 1) : 1.0f;
     return diffmst::Affine{a, __ldg(dy + i)};
   }
 
-  __device__ __forceinline__ float y_prev(int64_t i, int64_t n) const {
-    return n > 0 ? __ldg(y + i - 1) : 0.0f;
-  }
-
-  // per sample
   __device__ __forceinline__ void store(int row, int64_t t, float s) const {
     const int64_t n = T - 1 - t;
     const int64_t i = (int64_t)row * T + n;
     db[i] = s;
-    dalpha[i] = s * y_prev(i, n);
-  }
-
-  // per row
-  __device__ __forceinline__ void store(int row, int64_t t, float s, double* sums) const {
-    const int64_t n = T - 1 - t;
-    const int64_t i = (int64_t)row * T + n;
-    db[i] = s;
-    sums[0] += (double)s * (double)y_prev(i, n);
+    dalpha[i] = s * (n > 0 ? __ldg(y + i - 1) : 0.0f);
   }
 };
 
-// K3's backward. y[n] takes the linear branch a*y[n-1] + (1-a)*g[n] where
-// L[n] = y[n-1] < g[n] (y[-1] = 0), and is g[n] otherwise: a tie takes the
-// clamp. The adjoint is a reverse one-pole with a per-sample coefficient,
-// s[n] = dy[n] + a * L[n+1] * s[n+1], walked as t = T-1-n; then dg[n] =
-// s[n] * ((1-a) L[n] + (1 - L[n])) and dalpha = sum_n s[n] L[n] (y[n-1] - g[n]),
-// a row sum. The branch masks come from the forward's output y.
-struct MinScanBackwardOp {
-  using Map = diffmst::Affine;
+// K3's backward on the look-back, run backwards in time. y[n] took the
+// linear branch a*y[n-1] + (1-a)*g[n] where L[n] = y[n-1] < g[n] (y[-1] =
+// 0), and is g[n] otherwise: a tie takes the clamp. The adjoint is a reverse
+// one-pole whose coefficient a * L[n+1] is 0 wherever the next sample took
+// the clamp: s[n] = dy[n] + a L[n+1] s[n+1]; then dg[n] = s[n] * ((1-a)
+// L[n] + 1 - L[n]) and dalpha = sum_n s[n] L[n] (y[n-1] - g[n]), a row sum.
+// The branch masks come from the forward's output y. dy, g and y are staged
+// before the scan: prepare() gives each sample's coefficient, which needs g
+// one sample past the thread's last (past the tile's end, from device
+// memory). A tile's map is then a GatedAffine, its multiplicative part a
+// product of alphas and zeros, carried as two words. dg written in dy's
+// place.
+struct MinScanBackwardTileOp {
+  using Map = lookback::GatedAffine;
+  using Tile = lookback::Tile<kScanItems>;
+  static constexpr bool kReverse = true, kCoef = true;
   static constexpr int kSums = 1;
+  static constexpr int kItems = kScanItems, kMinBlocks = kScanMinBlocks;
+  static constexpr int kIn = 3, kEarly = 3, kOut = 1;
   const float* dy;
   const float* g;
-  const float* alpha;
+  const float* alpha;  // (rows,)
   const float* y;
   float* dg;
   int64_t T;
 
-  __device__ __forceinline__ float y_prev(int64_t i, int64_t n) const {
-    return n > 0 ? __ldg(y + i - 1) : 0.0f;
+  bool aligned() const {
+    return T % 4 == 0 && lookback::aligned16(dy) && lookback::aligned16(g) &&
+           lookback::aligned16(y) && lookback::aligned16(dg);
   }
 
-  __device__ __forceinline__ diffmst::Affine step(int row, int64_t t) const {
-    const int64_t n = T - 1 - t;
-    const int64_t i = (int64_t)row * T + n;
-    // L[n+1]; the first step (n = T-1) multiplies the zero state
-    const bool next_linear = n + 1 < T && __ldg(y + i) < __ldg(g + i + 1);
-    return diffmst::Affine{next_linear ? (double)__ldg(alpha + row) : 0.0, __ldg(dy + i)};
+  __device__ __forceinline__ const float* input(int a) const {
+    return a == 0 ? dy : a == 1 ? g : y;
+  }
+  __device__ __forceinline__ float* output(int) const { return dg; }
+  __device__ __forceinline__ static int out_slot(int) { return 0; }
+  __device__ __forceinline__ float params(int row) const { return __ldg(alpha + row); }
+  // unused: the carry publishes the multiplicative part
+  __device__ __forceinline__ double pole(float a) const { return a; }
+  __device__ __forceinline__ lookback::GatedAffine step(float, float d, float c) const {
+    return {diffmst::Affine{c, d}};
   }
 
-  __device__ __forceinline__ void store(int row, int64_t t, float s, double* sums) const {
-    const int64_t n = T - 1 - t;
-    const int64_t i = (int64_t)row * T + n;
-    const float a = __ldg(alpha + row);
-    const float yp = y_prev(i, n);
-    const float gv = __ldg(g + i);
-    if (yp < gv) {
-      dg[i] = (1.0f - a) * s;
-      sums[0] += (double)s * ((double)yp - (double)gv);
-    } else {
-      dg[i] = s;
+  __device__ __forceinline__ void prepare(float a, const Tile& tile, int row, int64_t t, int i0,
+                                          float (&d)[kItems], float (&c)[kItems]) const {
+    float gv[kItems], yv[kItems];
+    tile.read(0, i0, d);
+    tile.read(1, i0, gv);
+    tile.read(2, i0, yv);
+    // samples of the thread that have a next one in the row; the last
+    // sample's coefficient multiplies the zero state and is moot
+    const int64_t with_next = T - 1 - t;
+    const float g_after = with_next < kItems ? 0.0f
+                          : i0 + kItems < Tile::kTile
+                              ? tile.get(1, i0 + kItems)
+                              : __ldg(g + (int64_t)row * T + t + kItems);
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const float g_next = i + 1 < kItems ? gv[i + 1] : g_after;
+      c[i] = i < with_next && yv[i] < g_next ? a : 0.0f;  // a * L[n+1]
     }
+  }
+
+  __device__ __forceinline__ void finish(float a, const Tile& tile, int row, int64_t t, int i0,
+                                         int n, const float (&s)[kItems], double* sums) const {
+    float gv[kItems], yv[kItems];
+    tile.read(1, i0, gv);
+    tile.read(2, i0, yv);
+    const float y_before =
+        i0 > 0 ? tile.get(2, i0 - 1) : (t > 0 ? __ldg(y + (int64_t)row * T + t - 1) : 0.0f);
+    float part = 0.0f;  // the thread's items in float, the threads and tiles in double
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const float yp = i > 0 ? yv[i - 1] : y_before;
+      const bool linear = yp < gv[i];  // L[n]
+      if (i < n && linear) part += s[i] * (yp - gv[i]);
+      gv[i] = linear ? (1.0f - a) * s[i] : s[i];  // dg
+    }
+    sums[0] += (double)part;
+    tile.write(0, i0, gv);
   }
 };
 
@@ -236,8 +310,11 @@ extern "C" int diffmst_onepole_core(const float* b, const float* alpha, int alph
   return lookback::scan_rows(op, op.aligned(T), scratch, rows, T, s);
 }
 
-extern "C" long long diffmst_onepole_backward_scratch_bytes(int rows, long long T) {
-  return diffmst::scratch_bytes<OnepoleBackwardOp<false>>(rows, T);
+// The scratch of one diffmst_onepole_backward call, as for the forward.
+extern "C" long long diffmst_onepole_backward_scratch_bytes(int rows, long long T,
+                                                          int alpha_per_sample) {
+  return alpha_per_sample ? diffmst::scratch_bytes<OnepoleBackwardOp>(rows, T)
+                          : lookback::scratch_bytes<OnepoleBackwardTileOp>(rows, T);
 }
 
 // dalpha: (rows,) for a row's alpha, (rows, T) for a per-sample one.
@@ -246,11 +323,10 @@ extern "C" int diffmst_onepole_backward(const float* dy, const float* alpha, int
                                         int rows, long long T, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (alpha_per_sample) {
-    const OnepoleBackwardOp<true> op{dy, alpha, y, db, dalpha, T};
-    return diffmst::scan_rows(op, scratch, rows, T, s);
+    return diffmst::scan_rows(OnepoleBackwardOp{dy, alpha, y, db, dalpha, T}, scratch, rows, T, s);
   }
-  const OnepoleBackwardOp<false> op{dy, alpha, y, db, nullptr, T};
-  return diffmst::scan_rows(op, scratch, rows, T, s, dalpha);
+  const OnepoleBackwardTileOp op{dy, alpha, y, db, T};
+  return lookback::scan_rows(op, op.aligned(), scratch, rows, T, s, dalpha);
 }
 
 extern "C" long long diffmst_minscan_scratch_bytes(int rows, long long T) {
@@ -265,7 +341,7 @@ extern "C" int diffmst_release_min_scan(const float* g, const float* alpha, floa
 }
 
 extern "C" long long diffmst_minscan_backward_scratch_bytes(int rows, long long T) {
-  return diffmst::scratch_bytes<MinScanBackwardOp>(rows, T);
+  return lookback::scratch_bytes<MinScanBackwardTileOp>(rows, T);
 }
 
 // dalpha: (rows,), the row sums.
@@ -273,6 +349,7 @@ extern "C" int diffmst_release_min_scan_backward(const float* dy, const float* g
                                                  const float* alpha, const float* y, float* dg,
                                                  float* dalpha, void* scratch, int rows,
                                                  long long T, void* stream) {
-  const MinScanBackwardOp op{dy, g, alpha, y, dg, T};
-  return diffmst::scan_rows(op, scratch, rows, T, static_cast<cudaStream_t>(stream), dalpha);
+  const MinScanBackwardTileOp op{dy, g, alpha, y, dg, T};
+  return lookback::scan_rows(op, op.aligned(), scratch, rows, T, static_cast<cudaStream_t>(stream),
+                             dalpha);
 }

@@ -2,11 +2,14 @@
 //
 // A row of T samples evolves as state[n] = f_n(state[n-1]) from a zero
 // state, where each f_n belongs to a family of maps that is closed under
-// composition: the scalar affine map y -> a*y + b (K1, K2, K4) and the
-// min-affine map y -> min(c, a*y + d) (K3). Maps compose associatively, so the
-// recurrence is a scan. The TPU kernels walked time chunks in order on one
-// core with the carry in VMEM; blocks on a GPU run in parallel and in no
-// order, so the scan here takes three passes over (rows, T) row-major data:
+// composition: the scalar affine map y -> a*y + b (K1, K2, K4 and their
+// backward kernels) and the min-affine map y -> min(c, a*y + d) (K3). Maps
+// compose associatively, so the recurrence is a scan. The TPU kernels
+// walked time chunks in order on one core with the carry in VMEM; blocks on
+// a GPU run in parallel and in no order. This file holds the maps, which
+// the single-pass scan of lookback.cuh composes, and a scan in three passes
+// over (rows, T) row-major data, which serves K4 (a per-sample alpha) and
+// its backward:
 //
 //   1. chunk_totals:  one block per (chunk of kChunk samples, row). Each
 //      thread composes its kItems samples in order; a block scan (warp
@@ -24,12 +27,6 @@
 // store(row, t, y), which receives the new state rounded to float. Pass 3
 // keeps the maps of its loads in registers, so a sample's inputs are read
 // twice in all (passes 1 and 3) and its output written once.
-//
-// An Op that declares `static constexpr int kSums = S` (S > 0) also reduces
-// over each row: its store(..., sums) adds to S double accumulators.
-// Pass 3 sums them over the block (warp shuffles, then the warps in order)
-// into one partial per (row, chunk), and a fourth pass, row_sums, adds a
-// row's partials in chunk order. No atomics: the sums are deterministic.
 //
 // A backward (adjoint) scan runs backwards in time. Its Op maps the scan's
 // t to the sample T-1-t in both step() and store(), so the passes need not
@@ -91,7 +88,7 @@ struct MinAffine {
 template <class Op>
 using op_map = typename Op::Map;
 
-// Op::kSums, or 0 for an Op that declares none.
+// Op::kSums, or 0 for an Op that declares none (lookback.cuh's row sums).
 template <class Op, class = void>
 struct op_sums : std::integral_constant<int, 0> {};
 template <class Op>
@@ -189,39 +186,11 @@ chunk_carries(const Map* totals, typename Map::State* carries, int n_chunks) {
   }
 }
 
-// Sums each of v[0..S) over the block; the sums are valid in thread 0. The
-// order of the additions is fixed, so the result does not vary between runs.
-template <int S>
-__device__ __forceinline__ void block_sum(double (&v)[S]) {
-  __shared__ double warp_sums[kWarps][S];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    double x = v[k];
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) x += __shfl_down_sync(0xffffffffu, x, d);
-    if (lane == 0) warp_sums[warp][k] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      double x = 0.0;
-      for (int w = 0; w < kWarps; ++w) x += warp_sums[w][k];
-      v[k] = x;
-    }
-  }
-}
-
-// partials[row, chunk, 0..S) receives the block's sums when the Op has any.
 template <class Op>
 __global__ void __launch_bounds__(kThreads)
-chunk_apply(Op op, const typename op_map<Op>::State* carries, int64_t T, int n_chunks,
-            double* partials) {
+chunk_apply(Op op, const typename op_map<Op>::State* carries, int64_t T, int n_chunks) {
   using Map = op_map<Op>;
   using State = typename Map::State;
-  constexpr int S = op_sums<Op>::value;
   const int row = blockIdx.y;
   const int64_t t0 = (int64_t)blockIdx.x * kChunk + (int64_t)threadIdx.x * kItems;
   Map steps[kItems];
@@ -234,59 +203,32 @@ chunk_apply(Op op, const typename op_map<Op>::State* carries, int64_t T, int n_c
   Map total;
   const Map before = block_exclusive_scan(acc, &total);
   State y = before.apply(carries[(int64_t)row * n_chunks + blockIdx.x]);
-  double sums[S > 0 ? S : 1] = {};
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     if (t0 + i < T) {
       y = steps[i].apply(y);
-      if constexpr (S > 0) {
-        op.store(row, t0 + i, (float)y, sums);
-      } else {
-        op.store(row, t0 + i, (float)y);
-      }
+      op.store(row, t0 + i, (float)y);
     }
-  }
-  if constexpr (S > 0) {
-    block_sum<S>(sums);
-    if (threadIdx.x == 0) {
-      double* out = partials + ((int64_t)row * n_chunks + blockIdx.x) * S;
-#pragma unroll
-      for (int k = 0; k < S; ++k) out[k] = sums[k];
-    }
-  }
-}
-
-// out[k * rows + row] = the sum of partials[row, :, k], added in chunk order.
-__global__ void row_sums(const double* partials, float* out, int rows, int n_chunks, int S) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  for (int k = 0; k < S; ++k) {
-    double x = 0.0;
-    for (int c = 0; c < n_chunks; ++c) x += partials[((int64_t)row * n_chunks + c) * S + k];
-    out[(int64_t)k * rows + row] = (float)x;
   }
 }
 
 inline int num_chunks(int64_t T) { return (int)((T + kChunk - 1) / kChunk); }
 
-// Bytes of scratch a scan of (rows, T) with this Op needs: the chunk totals,
-// the carries and, for an Op with S sums, S partials a chunk.
+// Bytes of scratch a scan of (rows, T) with this Op needs: the chunk totals
+// and the carries.
 template <class Op>
 long long scratch_bytes(int rows, int64_t T) {
   using Map = op_map<Op>;
   const long long n = (long long)rows * num_chunks(T);
-  return n * (long long)(sizeof(Map) + sizeof(typename Map::State) +
-                         op_sums<Op>::value * sizeof(double));
+  return n * (long long)(sizeof(Map) + sizeof(typename Map::State));
 }
 
-// Runs the three passes on `stream`, and row_sums into `sums_out` ((S, rows)
-// float32) for an Op with S sums; returns the first launch error (0 = none).
+// Runs the three passes on `stream`; returns the first launch error (0 =
+// none).
 template <class Op>
-int scan_rows(const Op& op, void* scratch, int rows, int64_t T, cudaStream_t stream,
-              float* sums_out = nullptr) {
+int scan_rows(const Op& op, void* scratch, int rows, int64_t T, cudaStream_t stream) {
   using Map = op_map<Op>;
   using State = typename Map::State;
-  constexpr int S = op_sums<Op>::value;
   const int n_chunks = num_chunks(T);
   Map* totals = static_cast<Map*>(scratch);
   State* carries = reinterpret_cast<State*>(totals + (long long)rows * n_chunks);
@@ -297,11 +239,7 @@ int scan_rows(const Op& op, void* scratch, int rows, int64_t T, cudaStream_t str
   chunk_carries<Map><<<rows, kThreads, 0, stream>>>(totals, carries, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  double* partials = reinterpret_cast<double*>(carries + (long long)rows * n_chunks);
-  chunk_apply<Op><<<grid, kThreads, 0, stream>>>(op, carries, T, n_chunks, partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || S == 0) return (int)err;
-  row_sums<<<(rows + 127) / 128, 128, 0, stream>>>(partials, sums_out, rows, n_chunks, S);
+  chunk_apply<Op><<<grid, kThreads, 0, stream>>>(op, carries, T, n_chunks);
   return (int)cudaGetLastError();
 }
 

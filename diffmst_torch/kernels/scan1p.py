@@ -34,11 +34,17 @@ The backward, ``onepole_core_backward(dy, alpha, y)``, replaces the VJPs of
 ``onepole_scan`` (scan1p.py:142-150) and of ``onepole_scan_tv`` (K4,
 scan1p.py:176-187), which launched the Pallas scan on time-reversed rows.
 The adjoint s[n] = dy[n] + a[n+1] * s[n+1] is the same scan run backwards
-in time (the kernel's Op reads sample T-1-t at step t), so it shares the
-forward's machinery: db = s, and dalpha = s[n] * y[n-1] per sample, or its
-sum over the row, reduced per block and then per row in a fixed order. It
-reads dy and y and writes db, 12 bytes a sample (20 with a per-sample
-alpha). ``onepole_core`` is an ``autograd.Function`` over both halves.
+in time: db = s, and dalpha = s[n] * y[n-1] per sample, or its sum over
+the row. It reads dy and y and writes db, 12 bytes a sample (20 with a
+per-sample alpha). With a row's alpha it is the same single-pass look-back
+kernel as K1's, walking each row's tiles from its end: dy staged before
+the scan and y after, one carried word, the sums added per thread, per
+tile, then by the row's last tile in a fixed order; one kernel and one
+cudaMemsetAsync a call. On an NVIDIA H100 80GB HBM3 at 700 W it takes
+0.036 ms at 32 x 131,072 (1.4 TB/s, 2.4 times the bound; the three-pass
+scan took 0.078) and 0.018 ms at 8 x 131,072 (PERF.md, section 6). With a
+per-sample alpha (K4's backward) it runs on the three-pass scan. ``onepole_core`` is an ``autograd.Function`` over both
+halves.
 
 K3, ``release_min_scan(g, alpha)``, is the release stage of the decoupled
 compressor: y[n] = min(g[n], a * y[n-1] + (1 - a) * g[n]) from y[-1] = 0 dB,
@@ -64,8 +70,14 @@ g[n] (y[-1] = 0) and equals g[n] elsewhere, ties included (JAX's ``min``
 splits a tie's cotangent in halves instead). The adjoint is a reverse
 one-pole with the per-sample coefficient a * L[n+1]: s[n] = dy[n] + a L[n+1]
 s[n+1], dg = s ((1 - a) L + 1 - L), and dalpha = sum s L (y[n-1] - g[n]), a
-row sum. It reads dy, y and g and writes dg, 16 bytes a sample. K1's and
-K3's backward kernels still run on the three-pass scan.
+row sum. It reads dy, y and g and writes dg, 16 bytes a sample. It is a
+single-pass look-back kernel too, in reversed time, with dy, g and y staged
+before the scan: a sample's coefficient needs the gate L[n+1], from y[n] and the
+next sample's g (past a tile's end, from device memory). Its tiles' maps
+have a multiplicative part that is a product of alphas and zeros, not
+alpha to the tile's length, so each tile publishes two words, A and B. On
+an NVIDIA H100 80GB HBM3 at 700 W it takes 0.045 ms at 32 x 131,072 (1.5
+TB/s; the three-pass scan took 0.107) and 0.022 ms at 8 x 131,072.
 
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``onepole_core_plain``, ``release_min_scan_plain`` and their backward
@@ -184,7 +196,9 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("scan1p.cu")
     lib.diffmst_onepole_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
     lib.diffmst_onepole_scratch_bytes.restype = ctypes.c_longlong
-    lib.diffmst_onepole_backward_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.diffmst_onepole_backward_scratch_bytes.argtypes = [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    ]
     lib.diffmst_onepole_backward_scratch_bytes.restype = ctypes.c_longlong
     lib.diffmst_onepole_core.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -250,8 +264,8 @@ def _check_rows(name: str, x: torch.Tensor, alpha: torch.Tensor, *more: torch.Te
 
 
 def _check_three_pass_rows(name: str, rows: int) -> None:
-    """The three-pass scan (K4, the backward kernels) runs one grid row a
-    row of the input: at most 65,535."""
+    """The three-pass scan (K4 and its backward) runs one grid row a row of
+    the input: at most 65,535."""
     if rows > 65535:
         raise ValueError(f"{name} takes at most 65535 rows, got {rows}")
 
@@ -285,18 +299,19 @@ def _launch(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 def _launch_backward(dy: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor):
     _check(dy, alpha, y)
-    _check_three_pass_rows("onepole_core_backward", dy.shape[0])
+    per_sample = alpha.ndim == 2
+    if per_sample:
+        _check_three_pass_rows("onepole_core_backward with a per-sample alpha", dy.shape[0])
     db = torch.empty_like(dy)
     dalpha = torch.empty_like(alpha)
     if dy.numel() == 0:
         return db, dalpha.zero_()
     rows, t = dy.shape
-    per_sample = alpha.ndim == 2
     lib = _lib()
     with torch.cuda.device(dy.device):
         scratch = torch.empty(
-            lib.diffmst_onepole_backward_scratch_bytes(rows, t), dtype=torch.uint8,
-            device=dy.device,
+            lib.diffmst_onepole_backward_scratch_bytes(rows, t, int(per_sample)),
+            dtype=torch.uint8, device=dy.device,
         )
         err = lib.diffmst_onepole_backward(
             dy.data_ptr(), alpha.data_ptr(), int(per_sample), y.data_ptr(), db.data_ptr(),
@@ -412,7 +427,6 @@ def _launch_minscan(g: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
 def _launch_minscan_backward(dy, g, alpha, y):
     _check_rows("release_min_scan_backward", dy, alpha, g, y)
-    _check_three_pass_rows("release_min_scan_backward", dy.shape[0])
     dg = torch.empty_like(dy)
     dalpha = torch.empty_like(alpha)
     if dy.numel() == 0:

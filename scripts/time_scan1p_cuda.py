@@ -10,8 +10,8 @@ each in its own copy of the repository, can be compared in one run on one
 card: run it for A, B, B, A in one command. It times K1 (the one-pole with a
 row's alpha: attacks of 1-250 ms on the compressor's gains in dB) and K3
 (the release min-scan: releases of 10-250 ms) at 32 and 8 rows of 262,144
-samples, the serving shapes, and K1's and K3's backward kernels at 32 x
-131,072, the training shape. For each it prints the median device time
+samples, the serving shapes, and K1's and K3's backward kernels at 32 and
+8 rows of 131,072, the training shapes. For each it prints the median device time
 (``chip_smoke.time_ms`` of the checkout: 20 calls, L2 overwritten before
 each), the achieved TB/s of the bytes the function must move, and the
 largest distance from the plain version: in dB for the forward kernels, of
@@ -119,19 +119,21 @@ def main() -> int:
         err = (scan1p.release_min_scan(g, a3) - scan1p.release_min_scan_plain(g, a3)).abs().max().item()
         report("K3", rows, 262144, ms, 8, f"max_abs {err:.3g} dB off the plain version")
 
-    g, a1, a3 = gains(32, 131072)
-    dy = torch.randn(32, 131072, device=dev, generator=gen)
-    y1 = scan1p.onepole_core(((1.0 - a1)[:, None] * g).contiguous(), a1)
-    ms = cs.time_ms(lambda: scan1p.onepole_core_backward(dy, a1, y1), flush)
-    got, want = scan1p.onepole_core_backward(dy, a1, y1), scan1p.onepole_core_backward_plain(dy, a1, y1)
-    report("K1-bwd", 32, 131072, ms, 12, f"db {rel(got[0], want[0]):.3g}, dalpha"
-           f" {rel(got[1], want[1]):.3g} of their max-abs off the plain version")
-    y3 = scan1p.release_min_scan(g, a3)
-    ms = cs.time_ms(lambda: scan1p.release_min_scan_backward(dy, g, a3, y3), flush)
-    got = scan1p.release_min_scan_backward(dy, g, a3, y3)
-    want = scan1p.release_min_scan_backward_plain(dy, g, a3, y3)
-    report("K3-bwd", 32, 131072, ms, 16, f"dg {rel(got[0], want[0]):.3g}, dalpha"
-           f" {rel(got[1], want[1]):.3g} of their max-abs off the plain version")
+    for rows in (32, 8):
+        g, a1, a3 = gains(rows, 131072)
+        dy = torch.randn(rows, 131072, device=dev, generator=gen)
+        y1 = scan1p.onepole_core(((1.0 - a1)[:, None] * g).contiguous(), a1)
+        ms = cs.time_ms(lambda: scan1p.onepole_core_backward(dy, a1, y1), flush)
+        got = scan1p.onepole_core_backward(dy, a1, y1)
+        want = scan1p.onepole_core_backward_plain(dy, a1, y1)
+        report("K1-bwd", rows, 131072, ms, 12, f"db {rel(got[0], want[0]):.3g}, dalpha"
+               f" {rel(got[1], want[1]):.3g} of their max-abs off the plain version")
+        y3 = scan1p.release_min_scan(g, a3)
+        ms = cs.time_ms(lambda: scan1p.release_min_scan_backward(dy, g, a3, y3), flush)
+        got = scan1p.release_min_scan_backward(dy, g, a3, y3)
+        want = scan1p.release_min_scan_backward_plain(dy, g, a3, y3)
+        report("K3-bwd", rows, 131072, ms, 16, f"dg {rel(got[0], want[0]):.3g}, dalpha"
+               f" {rel(got[1], want[1]):.3g} of their max-abs off the plain version")
     if steps:
         del g, a1, a3, dy, y1, y3, got, want, flush
         torch.cuda.empty_cache()

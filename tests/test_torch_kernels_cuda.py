@@ -7,8 +7,9 @@ which the card's machine does not have):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Shapes are ragged on purpose: T below, at and just past one 2,048-sample
-block (K5's forward, K2's, K1's with a row's alpha and K3's: one 4,096-sample
-chunk or tile; K2's backward: 2,048), and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 and
+block (K5's forward, K2's, K1's with a row's alpha, K3's and their
+backward kernels: one 4,096-sample chunk or tile; K2's backward: 2,048),
+and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 and
 K3 (both versions compose in float64 and round once), 1e-5 on K2's audio
 and 1e-5 of K5's peak. The backward kernels are held against their plain
 versions at 1e-5 of each output's max-abs, and at 1e-4 on the per-row sums
@@ -320,58 +321,109 @@ def test_release_min_scan_backward_kernel_matches_plain(card, rows, t):
 
 
 def _scan_case(card, rows, t, seed, alpha=None):
-    """K1's input b = (1 - a) g with attacks of 1-250 ms, and K3's gains g
-    with releases of 10-250 ms (or ``alpha`` on every row of both)."""
+    """K1's input b = (1 - a) g with attacks of 1-250 ms, K3's gains g with
+    releases of 10-250 ms (or ``alpha`` on every row of both), and a
+    cotangent dy for their backward kernels."""
     gen = torch.Generator().manual_seed(seed)
     g, a3 = _gains_db(gen, rows, t, card)
     a1 = _alpha(gen, rows, card)
     if alpha is not None:
         a1, a3 = (torch.full((rows,), alpha, device=card) for _ in range(2))
-    return ((1.0 - a1)[:, None] * g).contiguous(), a1, g, a3
+    dy = torch.randn(rows, t, generator=gen).to(card)
+    return ((1.0 - a1)[:, None] * g).contiguous(), a1, g, a3, dy
 
 
-def _check_scan_kernels(b, a1, g, a3, plain_dtype=torch.float32):
-    """K1 (a row's alpha) and K3, the single-pass look-back kernels, against
-    their plain versions run in ``plain_dtype``: within 1e-5 dB, or within
-    1e-5 of the max-abs against float64; one launch a call."""
-    before = (scan1p.onepole_core.launches, scan1p.release_min_scan.launches)
+def _scan_calls(b, a1, g, a3, dy):
+    """K1, K3, and their backward kernels on K1's and K3's outputs:
+    (y1, y3, (db, dalpha), (dg, dalpha))."""
     y1 = scan1p.onepole_core(b, a1)
     y3 = scan1p.release_min_scan(g, a3)
+    return (y1, y3, scan1p.onepole_core_backward(dy, a1, y1),
+            scan1p.release_min_scan_backward(dy, g, a3, y3))
+
+
+def _flat(outs):
+    y1, y3, (db, da1), (dg, da3) = outs
+    return y1, y3, db, da1, dg, da3
+
+
+_SCAN_COUNTERS = (scan1p.onepole_core, scan1p.release_min_scan, scan1p.onepole_core_backward,
+                  scan1p.release_min_scan_backward)
+
+
+def _check_scan_kernels(b, a1, g, a3, dy, plain_dtype=torch.float32):
+    """K1 (a row's alpha), K3 and their backward kernels, the single-pass
+    look-back kernels, against their plain versions run in ``plain_dtype``:
+    K1 and K3 within 1e-5 dB, or within 1e-5 of the max-abs against float64;
+    db and dg within 1e-5 and the dalpha row sums within 1e-4 of their
+    max-abs; one launch a call."""
+    before = [c.launches for c in _SCAN_COUNTERS]
+    y1, y3, (db, da1), (dg, da3) = _scan_calls(b, a1, g, a3, dy)
     torch.cuda.synchronize()
-    assert (scan1p.onepole_core.launches, scan1p.release_min_scan.launches) == (before[0] + 1,
-                                                                                before[1] + 1)
-    want1 = scan1p.onepole_core_plain(b.to(plain_dtype), a1.to(plain_dtype))
-    want3 = scan1p.release_min_scan_plain(g.to(plain_dtype), a3.to(plain_dtype))
+    assert [c.launches - n for c, n in zip(_SCAN_COUNTERS, before)] == [1, 1, 1, 1]
+    cast = lambda *ts: [t.to(plain_dtype) for t in ts]  # noqa: E731
+    want1 = scan1p.onepole_core_plain(*cast(b, a1))
+    want3 = scan1p.release_min_scan_plain(*cast(g, a3))
     for name, y, w in (("K1", y1, want1), ("K3", y3, want3)):
         assert bool(torch.isfinite(y).all()), name
         if plain_dtype == torch.float64:
             assert _rel(y, w) <= 1e-5, name
         else:
             assert (y.double() - w.double()).abs().max().item() <= 1e-5, name
+    want1 = scan1p.onepole_core_backward_plain(*cast(dy, a1, y1))
+    want3 = scan1p.release_min_scan_backward_plain(*cast(dy, g, a3, y3))
+    for name, got, want in (("K1-bwd", (db, da1), want1), ("K3-bwd", (dg, da3), want3)):
+        assert all(bool(torch.isfinite(v).all()) for v in got), name
+        assert _rel(got[0], want[0]) <= 1e-5, name
+        assert _rel(got[1], want[1]) <= 1e-4, name
     return y1, y3
 
 
-@pytest.mark.parametrize("t", [1, 2, 3, 5, 4097, 4100, 10001])
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 2049, 4097, 4100, 10001])
 @pytest.mark.parametrize("rows", [1, 8, 33])
 def test_scan_lookback_kernels_match_plain(card, rows, t):
-    """K1 and K3 at ragged shapes: one tile or a few, the row's start off 16
-    bytes (T % 4 != 0: 4-byte copies) or on them (4100)."""
+    """K1, K3 and their backward kernels at ragged shapes: one tile or a few
+    (tiles of 4,096), the row's start off 16 bytes (T % 4 != 0: 4-byte
+    copies) or on them (4100)."""
     _check_scan_kernels(*_scan_case(card, rows, t, seed=rows * t + 21))
 
 
 def test_scan_lookback_holds_over_256_tiles_at_a_pole_of_0_9998(card):
     """4 x (2^20 + 3) samples, 257 tiles a row at 4,096 samples, alpha 0.9998
-    on K1 and K3: the look-back's float64 carries against the plain versions
-    run in float64."""
+    on K1, K3 and their backward kernels: the look-back's float64 carries
+    against the plain versions run in float64."""
     _check_scan_kernels(*_scan_case(card, 4, 2**20 + 3, seed=22, alpha=0.9998),
                         plain_dtype=torch.float64)
 
 
 def test_scan_lookback_at_a_pole_whose_powers_underflow(card):
-    """alpha 0.05 on K1 and K3: alpha^4096 is 0, so K3's look-back meets 0 *
-    inf (an identity's C), which fmin drops; 8 x 300,000 samples, 74 tiles a
-    row, two groups and a partial one."""
+    """alpha 0.05 on K1, K3 and their backward kernels: alpha^4096 is 0, so
+    K3's look-back meets 0 * inf (an identity's C), which fmin drops; 8 x
+    300,000 samples, 74 tiles a row, two groups and a partial one."""
     _check_scan_kernels(*_scan_case(card, 8, 300000, seed=28, alpha=0.05))
+
+
+def test_scan_lookback_min_scan_backward_with_clamps_across_tiles(card):
+    """K3's backward where its coefficient a * L[n+1] is 0 at the first and
+    last sample of every 2,048: of every tile of 4,096 (a clamp there, whose
+    gate reads g across a tile's end) and of every thread block's half
+    tile; and over stretches of held gains that cross tiles, where y[n-1] ==
+    g[n] (ties take the clamp); 8 x 300,003 samples at release poles of
+    10-250 ms and of 0.9998."""
+    b, a1, g, a3, dy = _scan_case(card, 8, 300003, seed=29)
+    a3[::2] = 0.9998
+    t = g.shape[1]
+    g[:, ::2048] = -60.0
+    g[:, 2047::2048] = -60.0
+    steps = -24.0 * torch.rand(8, t // 700 + 1, generator=torch.Generator().manual_seed(30))
+    held = torch.repeat_interleave(steps, 700, dim=1)[:, :t]
+    g[4:, t // 2 :] = held[4:, t // 2 :].to(g.device)
+    y3 = scan1p.release_min_scan(g, a3)
+    y_prev = torch.nn.functional.pad(y3[:, :-1], (1, 0))
+    # clamped at every tile's start before the held stretches (y is causal)
+    assert not bool((y_prev < g)[:, : t // 2 : 2048].any())
+    assert int((y_prev[4:, t // 2 :] == g[4:, t // 2 :]).sum()) > t // 4  # ties
+    _check_scan_kernels(b, a1, g, a3, dy)
 
 
 def test_scan_lookback_runs_more_tiles_than_are_resident(card):
@@ -381,9 +433,9 @@ def test_scan_lookback_runs_more_tiles_than_are_resident(card):
 
 
 def test_scan_lookback_kernels_are_deterministic(card):
-    """Three calls give bit-identical outputs."""
-    b, a1, g, a3 = _scan_case(card, 33, 100003, seed=24)
-    runs = [(scan1p.onepole_core(b, a1), scan1p.release_min_scan(g, a3)) for _ in range(3)]
+    """Three calls of each kernel give bit-identical outputs and row sums."""
+    case = _scan_case(card, 33, 100003, seed=24)
+    runs = [_flat(_scan_calls(*case)) for _ in range(3)]
     torch.cuda.synchronize()
     for run in runs[1:]:
         assert all(torch.equal(u, v) for u, v in zip(runs[0], run))
@@ -395,8 +447,7 @@ def test_scan_lookback_kernels_on_two_streams(card):
     cases = [_scan_case(card, rows, t, seed=25 + rows) for rows, t in ((32, 131072), (8, 262144))]
 
     def run(case):
-        b, a1, g, a3 = case
-        return scan1p.onepole_core(b, a1), scan1p.release_min_scan(g, a3)
+        return _flat(_scan_calls(*case))
 
     alone = [run(c) for c in cases]
     torch.cuda.synchronize()
@@ -417,12 +468,15 @@ def test_scan_lookback_takes_more_than_65535_rows(card):
 
 
 def test_scan_lookback_is_one_kernel_and_one_memset_a_call(card):
-    """A trace of one call of K1 (a row's alpha) and of K3 shows one kernel
-    launch, one memset and no copy each."""
+    """A trace of one call of K1 (a row's alpha), of K3 and of their
+    backward kernels shows one kernel launch, one memset and no copy each."""
     from torch.profiler import ProfilerActivity, profile
 
-    b, a1, g, a3 = _scan_case(card, 8, 10001, seed=27)
-    for fn in (lambda: scan1p.onepole_core(b, a1), lambda: scan1p.release_min_scan(g, a3)):
+    b, a1, g, a3, dy = _scan_case(card, 8, 10001, seed=27)
+    y1, y3 = scan1p.onepole_core(b, a1), scan1p.release_min_scan(g, a3)
+    for fn in (lambda: scan1p.onepole_core(b, a1), lambda: scan1p.release_min_scan(g, a3),
+               lambda: scan1p.onepole_core_backward(dy, a1, y1),
+               lambda: scan1p.release_min_scan_backward(dy, g, a3, y3)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()

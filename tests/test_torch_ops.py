@@ -262,16 +262,18 @@ def _lookback_scan(maps, pole, tile, reverse, kind=AFFINE):
     """The states of a first-order recurrence from 0 (or its adjoint,
     backwards in time), float64, in the order of the single-pass kernels
     (kernels/csrc/lookback.cuh). ``maps`` holds the per-sample map's
-    components (each broadcast to (rows, T), the multiplicative one first)
-    of the family ``kind`` (AFFINE or MIN_AFFINE); ``pole`` (rows,) is the
-    row's pole. Scan-order tiles of `tile` samples (reversed: the partial
-    chunk at the row's end comes first), each composed from the identity;
-    each tile's entering state from the state entering its group of 32
-    tiles, which the group's last tile publishes, and the aggregates before
-    it in the group, in the warp's tree; the multiplicative part of a read
-    aggregate or group state pole^tile by squaring, of the tile's own
-    aggregate its product. Returns the states in forward time and the
-    number of tiles."""
+    components (each broadcast to (rows, T), the multiplicative one first:
+    (rows, T) for a per-sample coefficient) of the family ``kind`` (AFFINE
+    or MIN_AFFINE); ``pole`` (rows,) is the row's pole. Scan-order tiles of
+    `tile` samples (reversed: the partial chunk at the row's end comes
+    first), each composed from the identity; each tile's entering state
+    from the state entering its group of 32 tiles, which the group's last
+    tile publishes, and the aggregates before it in the group, in the warp's
+    tree; the multiplicative part of a read aggregate or group state
+    pole^tile by squaring, of the tile's own aggregate its product. With
+    ``pole`` None the tiles and groups publish the multiplicative part as a
+    word too, as a GatedAffine carries it (K3's backward). Returns the
+    states in forward time and the number of tiles."""
     compose, apply, ident = kind
     rows, t = np.broadcast_shapes(*(np.shape(c) for c in maps))
     nt = -(-t // tile)
@@ -286,22 +288,27 @@ def _lookback_scan(maps, pole, tile, reverse, kind=AFFINE):
     agg = tuple(np.full((rows, nt), float(v)) for v in ident)
     for i in range(tile):
         agg = compose(agg, tuple(c[:, :, i] for c in m_n))
-    a_tile = pole.astype(np.float64)
-    for _ in range(int(np.log2(tile))):
-        a_tile = a_tile * a_tile
+    words = 0 if pole is None else 1  # the first published component
+    if pole is not None:
+        a_tile = pole.astype(np.float64)
+        for _ in range(int(np.log2(tile))):
+            a_tile = a_tile * a_tile
     identity = tuple(np.full((rows, 32), float(v)) for v in ident)
     prefix, entering = {}, np.empty((rows, nt))
     for j in range(nt):
         q, r = divmod(j, 32)
         m = tuple(c.copy() for c in identity)  # lane l < r: tile j-1-l of the group
-        m[0][:, :r] = a_tile[:, None]
-        for c, a in zip(m[1:], agg[1:]):
+        if pole is not None:
+            m[0][:, :r] = a_tile[:, None]
+        for c, a in zip(m[words:], agg[words:]):
             c[:, :r] = a[:, j - 1 - np.arange(r)]
-        g = (a_tile, *prefix[q]) if q else tuple(c[:, 0] for c in identity)
+        g = tuple(c[:, 0] for c in identity)
+        if q:
+            g = prefix[q] if pole is None else (a_tile, *prefix[q])
         entering[:, j] = apply(compose(g, _warp_tree(m, compose)), 0.0)
         if r == 31 and j + 1 < nt:  # the state entering the next group
             up = tuple(np.concatenate([a[:, j, None], c[:, :31]], 1) for c, a in zip(m, agg))
-            prefix[q + 1] = compose(g, _warp_tree(up, compose))[1:]
+            prefix[q + 1] = compose(g, _warp_tree(up, compose))[words:]
     y, out = entering, np.empty((rows, nt, tile))
     for i in range(tile):
         y = apply(tuple(c[:, :, i] for c in m_n), y)
@@ -324,6 +331,21 @@ def _knee_terms(x, params, eps=1e-8):
 
     return (region(irm1 * over, irm1 * w * w / (2 * knee)), region(irm1 + 0 * over, irm1 * w / knee),
             region(over, w * w / (2 * knee)), region(0 * over, irm1 * w * (knee - w) / (2 * knee**2)))
+
+
+def _row_sums_of_last_tile(term, tile, nt):
+    """Per-row sums of ``term`` (rows, T) as a reverse-time look-back kernel
+    adds them: a partial a scan-order tile (the partial chunk at the row's
+    end first), then the row's last tile's order (lane l takes tiles l, l +
+    32, ..., then the lanes in a tree)."""
+    rows, t = term.shape
+    parts = np.pad(term[:, ::-1], ((0, 0), (nt * tile - t, 0))).reshape(rows, nt, tile).sum(-1)
+    lanes = np.zeros((rows, 32))
+    for j in range(nt):
+        lanes[:, j % 32] += parts[:, j]
+    for d in (16, 8, 4, 2, 1):
+        lanes[:, :d] += lanes[:, d : 2 * d]
+    return lanes[:, 0]
 
 
 @pytest.mark.parametrize("tile,t", [(4096, 10001), (16, 5000)], ids=["tile4096", "tile16_313"])
@@ -363,16 +385,7 @@ def test_compressor_lookback_decomposition_matches_plain(direction, tile, t):
     dx = np.where(np.abs(x) > eps, dg * d_over / (k * x), 0.0)
     g_prev = np.pad(env[:, :-1], ((0, 0), (1, 0)))
     terms = [-dg * d_over, dg * d_irm1, dg * d_knee * (params[2] > 1e-3)[:, None], s * (g_prev - g_c), u]
-    pad = nt * tile - t
-    sums = []
-    for term in terms:  # partials of the scan-order tiles, then the row's last tile's order
-        parts = np.pad(term[:, ::-1], ((0, 0), (pad, 0))).reshape(rows, nt, tile).sum(-1)
-        lanes = np.zeros((rows, 32))
-        for j in range(nt):
-            lanes[:, j % 32] += parts[:, j]
-        for d in (16, 8, 4, 2, 1):
-            lanes[:, :d] += lanes[:, d : 2 * d]
-        sums.append(lanes[:, 0])
+    sums = [_row_sums_of_last_tile(term, tile, nt) for term in terms]
     want = comp_fused.compressor_fused_backward_plain(
         *(torch.from_numpy(a) for a in (x, xd, params, env, dy)), eps)
     for name, got, w in zip(("dx", "dx_delayed", "dparams"), (dx, dxd, np.stack(sums)), want):
@@ -419,6 +432,62 @@ def test_minscan_lookback_decomposition_matches_plain(tile, t):
     assert np.isfinite(y).all()
     assert (np.pad(y[3, :-1], (1, 0)) == g[3]).sum() > t // 10  # ties
     _rel_close(y, want, 1e-12, "y")
+
+
+@pytest.mark.parametrize("tile,t", [(_SCAN_TILE, 10001), (16, 5000)], ids=["tile_k1bwd", "tile16_313"])
+def test_onepole_backward_lookback_decomposition_matches_plain(tile, t):
+    """The algebra of K1's backward single-pass kernel (a row's alpha),
+    emulated in float64: the adjoint's affine maps in reversed time, the
+    partial tile first, one carried word a tile (alpha^tile by squaring),
+    and dalpha's row sums in the row's last tile's order. Held against
+    onepole_core_backward_plain at 1e-12 of each output's max-abs. Rows: a
+    pole of 0.9998, an attack pole, and 0.05, whose powers underflow to 0
+    over a tile."""
+    rng = np.random.default_rng(44)
+    alpha = np.array([0.9998, _attack_alpha(rng, 1)[0], 0.05], np.float32).astype(np.float64)
+    y = rng.uniform(-40.0, 0.0, size=(3, t))
+    dy = rng.normal(size=(3, t))
+    s, nt = _lookback_scan((alpha[:, None], dy), alpha, tile, reverse=True)
+    dalpha = _row_sums_of_last_tile(s * np.pad(y[:, :-1], ((0, 0), (1, 0))), tile, nt)
+    db_p, da_p = scan1p.onepole_core_backward_plain(*(torch.from_numpy(a) for a in (dy, alpha, y)))
+    _rel_close(s, db_p.numpy(), 1e-12, "db")
+    _rel_close(dalpha, da_p.numpy(), 1e-12, "dalpha")
+
+
+@pytest.mark.parametrize("tile,t", [(_SCAN_TILE, 10001), (16, 5000)], ids=["tile_k3bwd", "tile16_313"])
+def test_minscan_backward_lookback_decomposition_matches_plain(tile, t):
+    """The algebra of K3's backward single-pass kernel, emulated in float64:
+    the adjoint's affine maps with the per-sample coefficient a * L[n+1] in
+    reversed time, each tile's and group's map carried as the two words (A,
+    B), and dalpha's row sums in the row's last tile's order. Held against
+    release_min_scan_backward_plain at 1e-12 of each output's max-abs. Rows:
+    release poles of 0.9998 and of 10 ms; 0.05, whose powers underflow; a
+    row clamped at the first and last sample of every tile (so that a zero
+    coefficient falls on every tile and group boundary); and gains held over
+    stretches of 700 samples, so that y[n-1] == g[n] (ties, which take the
+    clamp) across tiles."""
+    rng = np.random.default_rng(45)
+    alpha = np.array([0.9998, np.exp(-np.log(9.0) / (SR * 0.010)), 0.05, 0.999, 0.999],
+                     np.float32).astype(np.float64)
+    g = -30.0 * rng.uniform(size=(5, t)) ** 2
+    g[:, : t // 5] = 0.0
+    g[3, ::tile] = g[3, tile - 1 :: tile] = -60.0  # clamps at the tiles' edges
+    g[4] = np.repeat(rng.uniform(-24.0, 0.0, size=-(-t // 700)), 700)[:t]
+    y = scan1p.release_min_scan_plain(torch.from_numpy(g), torch.from_numpy(alpha)).numpy()
+    dy = rng.normal(size=(5, t))
+    y_prev = np.pad(y[:, :-1], ((0, 0), (1, 0)))
+    linear = y_prev < g  # L[n]; a tie takes the clamp
+    assert not linear[3, ::tile].any() and not linear[3, tile - 1 :: tile].any()
+    assert (y_prev[4] == g[4]).sum() > t // 10  # ties
+    coef = np.where(np.pad(linear[:, 1:], ((0, 0), (0, 1))), alpha[:, None], 0.0)  # a L[n+1]
+    s, nt = _lookback_scan((coef, dy), None, tile, reverse=True)
+    dg = np.where(linear, (1.0 - alpha)[:, None] * s, s)
+    dalpha = _row_sums_of_last_tile(np.where(linear, s * (y_prev - g), 0.0), tile, nt)
+    dg_p, da_p = scan1p.release_min_scan_backward_plain(
+        *(torch.from_numpy(a) for a in (dy, g, alpha, y)))
+    assert np.isfinite(s).all()
+    _rel_close(dg, dg_p.numpy(), 1e-12, "dg")
+    _rel_close(dalpha, da_p.numpy(), 1e-12, "dalpha")
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu():
