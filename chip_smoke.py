@@ -14,11 +14,11 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      serving shapes, and their backward kernels (K1's with a per-row and, as
      K4's, a per-sample alpha; K2's, with the envelope that K2's forward
      writes for it) at the training shapes, against their plain PyTorch
-     versions, with times, achieved TB/s and bounds; K2, K1 (a row's alpha),
-     K3 and their backward kernels (one single-pass kernel each) also over
-     4 rows of 2^20 + 3 samples at a pole of 0.9998 against float64, and
-     one call of each traced with torch.profiler (one kernel and one memset
-     a call);
+     versions, with times, achieved TB/s and bounds; K2, K1, K3, K4 and
+     their backward kernels (one single-pass kernel each) also over 4 rows
+     of 2^20 + 3 samples at a pole of 0.9998 (K4: per-sample poles within
+     1e-5 of it) against float64, and one call of each traced with
+     torch.profiler (one kernel and one memset a call);
      K5 also against scipy.signal.sosfilt in float64 at a 20 Hz
      high-Q low shelf, its time split by its three kernels (chunk, carry,
      apply; CUDA events), and the stages it writes for its backward
@@ -326,6 +326,8 @@ def phase_kernels(form: str):
         record("onepole_core_per_sample" if per_sample else "onepole_core", shape, err, err64,
                lambda: scan1p.onepole_core(b, a), lambda: scan1p.onepole_core_plain(b, a),
                nbytes, 2 * n, launches, rows == 32)
+        if per_sample:  # K4's single-pass kernel
+            traced("onepole_core_per_sample", shape, lambda: scan1p.onepole_core(b, a))
 
     # K2 on the track chain (32 rows, lookahead 2048) and master (8, 1024)
     for rows, lookahead in ((32, 2048), (8, 1024)):
@@ -390,7 +392,7 @@ def phase_kernels(form: str):
         record(name, shape, abs_err(((db, db_p), (da, da_p))), None,
                lambda: bwd(dy, a, y), lambda: scan1p.onepole_core_backward_plain(dy, a, y),
                nbytes, 4 * n, launches, rows == 32, rel)
-        if rows == 32 and not per_sample:  # the single-pass kernel
+        if rows == 32:  # the single-pass kernels
             traced(name, shape, lambda: bwd(dy, a, y))
 
     # K2's backward on the track chain (32 rows, lookahead 2048) and master (8, 1024)
@@ -510,10 +512,11 @@ def phase_kernels(form: str):
                lambda: scan1p.release_min_scan(g, a), lambda: scan1p.release_min_scan_plain(g, a),
                n * 8 + rows * 4, 5 * n, scan1p.release_min_scan.launches, rows == 32)
 
-    # K1 (a row's alpha), K3 and their backward kernels over 4 x (2^20 + 3)
-    # samples (257 tiles a row at 4,096, the rows' starts off 16 bytes) at
-    # alpha 0.9998, against the plain versions in float64: the look-back's
-    # carries over a long row
+    # K1 (a row's alpha), K3, K4 (a per-sample alpha) and their backward
+    # kernels over 4 x (2^20 + 3) samples (257 tiles a row at 4,096, the
+    # rows' starts off 16 bytes) at alpha 0.9998 (K4: within 1e-5 of it,
+    # sample by sample), against the plain versions in float64: the
+    # look-back's carries over a long row
     rows, t = 4, 2**20 + 3
     x = torch.randn(rows, t, device=dev, generator=gen) * torch.linspace(0.02, 1.0, t, device=dev)
     thr, ratio, _, knee, _ = params(rows)
@@ -521,26 +524,34 @@ def phase_kernels(form: str):
     alpha = torch.full((rows,), 0.9998, device=dev)
     b = ((1.0 - alpha)[:, None] * g).contiguous()
     dy = torch.randn(rows, t, device=dev, generator=gen)
-    y1, y3 = scan1p.onepole_core(b, alpha), scan1p.release_min_scan(g, alpha)
+    a4 = 0.9998 * (1.0 - 1e-5 * torch.rand(rows, t, device=dev, generator=gen))
+    b4 = ((1.0 - a4) * g).contiguous()
+    y1, y3, y4 = scan1p.onepole_core(b, alpha), scan1p.release_min_scan(g, alpha), scan1p.onepole_core(b4, a4)
     bwd1 = scan1p.onepole_core_backward(dy, alpha, y1)
     bwd3 = scan1p.release_min_scan_backward(dy, g, alpha, y3)
+    bwd4 = scan1p.onepole_core_backward(dy, a4, y4)
     torch.cuda.synchronize()
-    d64 = [v.double() for v in (dy, alpha, g, y1, y3)]
+    d64 = [v.double() for v in (dy, alpha, g, y1, y3, a4, y4)]
     want1 = scan1p.onepole_core_backward_plain(d64[0], d64[1], d64[3])
     want3 = scan1p.release_min_scan_backward_plain(d64[0], d64[2], d64[1], d64[4])
+    want4 = scan1p.onepole_core_backward_plain(d64[0], d64[5], d64[6])
     long_err = {"K1": rel_err(y1, scan1p.onepole_core_plain(b.double(), alpha.double())),
                 "K3": rel_err(y3, scan1p.release_min_scan_plain(g.double(), alpha.double())),
                 "K1-bwd db": rel_err(bwd1[0], want1[0]), "K3-bwd dg": rel_err(bwd3[0], want3[0])}
     sums_err = {"K1-bwd dalpha": rel_err(bwd1[1], want1[1]), "K3-bwd dalpha": rel_err(bwd3[1], want3[1])}
-    line(f"[kernels] onepole_core, release_min_scan and their backward kernels {rows}x{t}, alpha"
-         f" 0.9998, against float64 (of their max-abs): "
-         + ", ".join(f"{k} {v:.3g}" for k, v in {**long_err, **sums_err}.items()))
-    require(all(bool(torch.isfinite(v).all()) for v in (y1, y3, *bwd1, *bwd3)),
-            "K1, K3 and their backward kernels' long rows finite")
+    k4_err = {"K4": rel_err(y4, scan1p.onepole_core_plain(b4.double(), d64[5])),
+              "K4-bwd db": rel_err(bwd4[0], want4[0]), "K4-bwd dalpha": rel_err(bwd4[1], want4[1])}
+    line(f"[kernels] onepole_core (a row's and a per-sample alpha), release_min_scan and their"
+         f" backward kernels {rows}x{t}, alpha 0.9998, against float64 (of their max-abs): "
+         + ", ".join(f"{k} {v:.3g}" for k, v in {**long_err, **sums_err, **k4_err}.items()))
+    require(all(bool(torch.isfinite(v).all()) for v in (y1, y3, y4, *bwd1, *bwd3, *bwd4)),
+            "K1, K3, K4 and their backward kernels' long rows finite")
     require(max(long_err.values()) <= 1e-5,
             f"K1, K3 and their backward kernels over 257 tiles a row agree with float64 ({long_err})")
     require(max(sums_err.values()) <= 1e-4, f"their dalpha row sums agree with float64 ({sums_err})")
-    del x, g, b, dy, y1, y3, bwd1, bwd3, d64, want1, want3
+    require(max(k4_err.values()) <= 1e-6,
+            f"K4 and its backward over 257 tiles a row agree with float64 ({k4_err})")
+    del x, g, b, dy, a4, b4, y1, y3, y4, bwd1, bwd3, bwd4, d64, want1, want3, want4
 
     # What one call of K1 (a row's alpha) and of K3 puts on the card at the
     # track chain's shape, counted in a trace of that call

@@ -4,12 +4,11 @@
 //
 // The recurrence and its maps are those of scan_common.cuh: state[n] =
 // f_n(state[n-1]) from a zero state, maps composed in double precision,
-// here with a pole that is constant along a row or, for a GatedAffine, a
+// with a pole that is constant along a row or, for a GatedAffine, a
 // coefficient that an Op gives each sample; a Map takes part through its
 // Carry (below): Affine's (K1 with a row's alpha and its backward, K2 and
-// K2's backward), MinAffine's (K3) and GatedAffine's (K3's backward).
-// scan_common.cuh reads every sample twice in three launches; here one
-// launch reads each sample once:
+// K2's backward), MinAffine's (K3) and GatedAffine's (K3's backward, K4 and
+// K4's backward). One launch reads each sample once:
 //
 //   1. A block takes a ticket from an atomic counter, not its blockIdx, and
 //      works on the tile that the ticket names: ticket k is tile k / rows of
@@ -184,7 +183,8 @@ __device__ __forceinline__ void unstage(const Tile<kItems>& tile, int a, float* 
 // word, and its from_words ignores the pole. The state entering a group is
 // published as the same words: only its additive part reaches a state
 // (maps there are applied to the zero state), but its multiplicative part
-// is finite, so 0 times it is 0.
+// is finite (for a GatedAffine, as long as no product of its coefficients
+// overflows: see kUnset), so 0 times it is 0.
 template <class Map>
 struct Carry;
 
@@ -214,8 +214,9 @@ struct Carry<MinAffine> {
 };
 
 // y -> a*y + b with a per-sample a (K3's backward, whose coefficient is 0
-// wherever the next sample took the clamp): Affine's compose and apply, a
-// type of its own for its Carry.
+// wherever the next sample took the clamp; K4 and its backward, whose
+// coefficient is a sample's alpha): Affine's compose and apply, a type of
+// its own for its Carry.
 struct GatedAffine : Affine {
   __device__ __forceinline__ static GatedAffine identity() { return {Affine::identity()}; }
   __device__ __forceinline__ static GatedAffine compose(GatedAffine first, GatedAffine then) {
@@ -240,8 +241,14 @@ struct Carry<GatedAffine> {
 // card's NaN is 0x7fff...); a word that had it is published as that NaN.
 // Neither can a carried word: an Affine's b and a MinAffine's d are finite,
 // a MinAffine's c is a finite minimum of a full tile's inputs or, for the
-// identity, +inf (0x7ff0...), and a GatedAffine's a is a product of poles
-// and zeros in [0, 1].
+// identity, +inf (0x7ff0...), and a GatedAffine's a is a product of finite
+// per-sample coefficients (K3's backward's poles and zeros, K4's alphas).
+// Where they lie in [-1, 1], as a stable one-pole's do, the product is
+// finite, or 0 where it underflows (a tile of alphas of 0.05): a composition
+// with it is then the later map alone, which is right to double precision,
+// since the earlier state's true weight is below 1e-308. Only coefficients
+// above 1 in magnitude can overflow it to inf, and inf times the zero state
+// is NaN; their outputs overflow float32 over such a run anyway.
 constexpr long long kUnset = -1LL;
 
 template <int W>

@@ -16,18 +16,23 @@
 // dalpha). K3 reads g and writes y, 8 bytes a sample; its backward reads dy,
 // y and g and writes dg, 16 bytes a sample.
 //
-// K1 with a row's alpha, K3 and their backward kernels are each one kernel
-// and one cudaMemsetAsync a call: the single-pass scan with decoupled
+// Every one of these kernels, with a row's or a per-sample alpha, is one
+// kernel and one cudaMemsetAsync a call: the single-pass scan with decoupled
 // look-back of lookback.cuh, which reads every input once. A block stages a
 // tile of 256 x kItems samples of its inputs in shared memory by cp.async,
 // scans it in float64 from zero, takes the state entering it from the tiles
-// before it (K1 and K1's backward carry one word, b; K3 two, d and c; K3's
-// backward two, a and b: its coefficient a * L[n+1] varies by sample) and
-// writes its output over an input in the tile, then to device memory. The
-// backward kernels walk the tiles from the row's end, and the last tile of
-// each row adds the row's dalpha partials. K4 (a per-sample alpha) and its
-// backward stay on the three-pass chunked scan of scan_common.cuh, which
-// reads the inputs twice (passes 1 and 3).
+// before it and writes its outputs over inputs in the tile, then to device
+// memory. K1 and K1's backward carry one word a tile, b (the multiplicative
+// part is alpha to the tile's length, which each reader computes); K3 two,
+// d and c. Where the coefficient varies by sample, a tile's multiplicative
+// part is the product of its samples' coefficients and is carried as a
+// second word (GatedAffine): K3's backward (a * L[n+1]), K4 (alpha[n]) and
+// K4's backward (alpha[n+1]). The backward kernels walk the tiles from the
+// row's end; K1's and K3's add the row's dalpha partials in its last tile,
+// K4's writes dalpha per sample in alpha's staged slot. On an NVIDIA H100
+// 80GB HBM3 at 700 W (PERF.md, section 6): K4 takes 0.052 ms at 32 x 262,144
+// (1.9 TB/s; the three-pass scan it replaced, 0.134), K4's backward 0.044 ms
+// at 32 x 131,072 (1.9 TB/s; 0.124).
 
 #include "lookback.cuh"
 
@@ -36,8 +41,9 @@ namespace {
 namespace lookback = diffmst::lookback;
 
 // Samples a thread of the single-pass kernels (a tile is 256 times as many),
-// and the blocks an SM must hold, which caps the registers. The backward
-// kernels stage two and three arrays, 32 and 48 KB a tile.
+// and the blocks an SM must hold, which caps the registers. K1 and K3 stage
+// one array, 16 KB a tile; K4 and K1's backward two; K3's and K4's backward
+// three, 48 KB.
 constexpr int kScanItems = 16;
 constexpr int kScanMinBlocks = 4;
 
@@ -109,21 +115,43 @@ struct MinScanTileOp {
   }
 };
 
-// K4 (alpha per sample) on the three-pass scan.
-struct OnepoleOp {
-  using Map = diffmst::Affine;
+// K4, K1 with a per-sample alpha, on the look-back: b and alpha staged, y
+// written in b's place. Sample n's map is y -> alpha[n]*y + b[n]: prepare()
+// gives alpha[n] as its coefficient, so a tile's map is a GatedAffine whose
+// multiplicative part is the product of its alphas, carried as two words.
+struct OnepoleTvTileOp {
+  using Map = lookback::GatedAffine;
+  using Tile = lookback::Tile<kScanItems>;
+  static constexpr bool kReverse = false, kCoef = true;
+  static constexpr int kItems = kScanItems, kMinBlocks = kScanMinBlocks;
+  static constexpr int kIn = 2, kEarly = 2, kOut = 1;
   const float* b;
   const float* alpha;  // (rows, T)
   float* y;
-  int64_t T;
 
-  __device__ __forceinline__ diffmst::Affine step(int row, int64_t t) const {
-    const int64_t i = (int64_t)row * T + t;
-    return diffmst::Affine{__ldg(alpha + i), __ldg(b + i)};
+  bool aligned(int64_t T) const {
+    return T % 4 == 0 && lookback::aligned16(b) && lookback::aligned16(alpha) &&
+           lookback::aligned16(y);
   }
 
-  __device__ __forceinline__ void store(int row, int64_t t, float v) const {
-    y[(int64_t)row * T + t] = v;
+  __device__ __forceinline__ const float* input(int a) const { return a == 0 ? b : alpha; }
+  __device__ __forceinline__ float* output(int) const { return y; }
+  __device__ __forceinline__ static int out_slot(int) { return 0; }
+  // no per-row parameter; the pole is unused: the carry publishes the
+  // multiplicative part
+  __device__ __forceinline__ float params(int) const { return 0.0f; }
+  __device__ __forceinline__ double pole(float) const { return 1.0; }
+  __device__ __forceinline__ lookback::GatedAffine step(float, float bv, float c) const {
+    return {diffmst::Affine{c, bv}};
+  }
+  __device__ __forceinline__ void prepare(float, const Tile& tile, int, int64_t, int i0,
+                                          float (&bv)[kItems], float (&c)[kItems]) const {
+    tile.read(0, i0, bv);
+    tile.read(1, i0, c);
+  }
+  __device__ __forceinline__ void finish(float, const Tile& tile, int, int64_t, int i0, int,
+                                         const float (&yv)[kItems]) const {
+    tile.write(0, i0, yv);
   }
 };
 
@@ -179,12 +207,22 @@ struct OnepoleBackwardTileOp {
 };
 
 // K4's backward, the adjoint of the one-pole with a per-sample alpha, on the
-// three-pass scan, run backwards in time: s[n] = dy[n] + a[n+1] * s[n+1],
-// walked as t = T-1-n; db = s and dalpha = s[n] * y[n-1], per sample. The
-// first step (n = T-1) multiplies the zero state, so its coefficient is
-// moot.
-struct OnepoleBackwardOp {
-  using Map = diffmst::Affine;
+// look-back, run backwards in time: s[n] = dy[n] + alpha[n+1] * s[n+1] from
+// s[T] = 0; db = s and dalpha[n] = s[n] * y[n-1] (y[-1] = 0), per sample.
+// dy and alpha staged before the scan, y after. A sample's coefficient is
+// the next sample's alpha: past the thread's last item from the tile, past
+// the tile's end from device memory. The row's last sample's multiplies the
+// zero state and is moot: it is 0, read from nowhere. A tile's map is a
+// GatedAffine, as K4's. db written in dy's place and dalpha in alpha's: the
+// barriers after the block scan and the look-back keep every prepare()'s
+// reads of alpha before any finish() writes there. y[n-1] of a tile's first
+// sample is the tile before's last, read from device memory.
+struct OnepoleTvBackwardTileOp {
+  using Map = lookback::GatedAffine;
+  using Tile = lookback::Tile<kScanItems>;
+  static constexpr bool kReverse = true, kCoef = true;
+  static constexpr int kItems = kScanItems, kMinBlocks = kScanMinBlocks;
+  static constexpr int kIn = 3, kEarly = 2, kOut = 2;
   const float* dy;
   const float* alpha;  // (rows, T)
   const float* y;
@@ -192,18 +230,50 @@ struct OnepoleBackwardOp {
   float* dalpha;  // (rows, T)
   int64_t T;
 
-  __device__ __forceinline__ diffmst::Affine step(int row, int64_t t) const {
-    const int64_t n = T - 1 - t;
-    const int64_t i = (int64_t)row * T + n;
-    const float a = n + 1 < T ? __ldg(alpha + i + 1) : 1.0f;
-    return diffmst::Affine{a, __ldg(dy + i)};
+  bool aligned() const {
+    return T % 4 == 0 && lookback::aligned16(dy) && lookback::aligned16(alpha) &&
+           lookback::aligned16(y) && lookback::aligned16(db) && lookback::aligned16(dalpha);
   }
 
-  __device__ __forceinline__ void store(int row, int64_t t, float s) const {
-    const int64_t n = T - 1 - t;
-    const int64_t i = (int64_t)row * T + n;
-    db[i] = s;
-    dalpha[i] = s * (n > 0 ? __ldg(y + i - 1) : 0.0f);
+  __device__ __forceinline__ const float* input(int a) const {
+    return a == 0 ? dy : a == 1 ? alpha : y;
+  }
+  __device__ __forceinline__ float* output(int o) const { return o == 0 ? db : dalpha; }
+  __device__ __forceinline__ static int out_slot(int o) { return o; }
+  __device__ __forceinline__ float params(int) const { return 0.0f; }
+  __device__ __forceinline__ double pole(float) const { return 1.0; }
+  __device__ __forceinline__ lookback::GatedAffine step(float, float d, float c) const {
+    return {diffmst::Affine{c, d}};
+  }
+
+  __device__ __forceinline__ void prepare(float, const Tile& tile, int row, int64_t t, int i0,
+                                          float (&d)[kItems], float (&c)[kItems]) const {
+    float av[kItems];
+    tile.read(0, i0, d);
+    tile.read(1, i0, av);
+    // samples of the thread that have a next one in the row
+    const int64_t with_next = T - 1 - t;
+    const float a_after = with_next < kItems ? 0.0f
+                          : i0 + kItems < Tile::kTile
+                              ? tile.get(1, i0 + kItems)
+                              : __ldg(alpha + (int64_t)row * T + t + kItems);
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const float a_next = i + 1 < kItems ? av[i + 1] : a_after;
+      c[i] = i < with_next ? a_next : 0.0f;
+    }
+  }
+
+  __device__ __forceinline__ void finish(float, const Tile& tile, int row, int64_t t, int i0,
+                                         int, const float (&s)[kItems]) const {
+    float v[kItems];  // y, then dalpha in its place from the last item down
+    tile.read(2, i0, v);
+    const float y_before =
+        i0 > 0 ? tile.get(2, i0 - 1) : (t > 0 ? __ldg(y + (int64_t)row * T + t - 1) : 0.0f);
+#pragma unroll
+    for (int i = kItems - 1; i >= 0; --i) v[i] = s[i] * (i > 0 ? v[i - 1] : y_before);
+    tile.write(0, i0, s);
+    tile.write(1, i0, v);
   }
 };
 
@@ -292,10 +362,10 @@ struct MinScanBackwardTileOp {
 
 }  // namespace
 
-// The scratch of one diffmst_onepole_core call: the look-back's with a row's
-// alpha, the three-pass scan's with a per-sample one.
+// The scratch of one diffmst_onepole_core call, with a row's or a
+// per-sample alpha.
 extern "C" long long diffmst_onepole_scratch_bytes(int rows, long long T, int alpha_per_sample) {
-  return alpha_per_sample ? diffmst::scratch_bytes<OnepoleOp>(rows, T)
+  return alpha_per_sample ? lookback::scratch_bytes<OnepoleTvTileOp>(rows, T)
                           : lookback::scratch_bytes<OnepoleTileOp>(rows, T);
 }
 
@@ -304,7 +374,8 @@ extern "C" int diffmst_onepole_core(const float* b, const float* alpha, int alph
                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (alpha_per_sample) {
-    return diffmst::scan_rows(OnepoleOp{b, alpha, y, T}, scratch, rows, T, s);
+    const OnepoleTvTileOp op{b, alpha, y};
+    return lookback::scan_rows(op, op.aligned(T), scratch, rows, T, s);
   }
   const OnepoleTileOp op{b, alpha, y};
   return lookback::scan_rows(op, op.aligned(T), scratch, rows, T, s);
@@ -313,7 +384,7 @@ extern "C" int diffmst_onepole_core(const float* b, const float* alpha, int alph
 // The scratch of one diffmst_onepole_backward call, as for the forward.
 extern "C" long long diffmst_onepole_backward_scratch_bytes(int rows, long long T,
                                                           int alpha_per_sample) {
-  return alpha_per_sample ? diffmst::scratch_bytes<OnepoleBackwardOp>(rows, T)
+  return alpha_per_sample ? lookback::scratch_bytes<OnepoleTvBackwardTileOp>(rows, T)
                           : lookback::scratch_bytes<OnepoleBackwardTileOp>(rows, T);
 }
 
@@ -323,7 +394,8 @@ extern "C" int diffmst_onepole_backward(const float* dy, const float* alpha, int
                                         int rows, long long T, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (alpha_per_sample) {
-    return diffmst::scan_rows(OnepoleBackwardOp{dy, alpha, y, db, dalpha, T}, scratch, rows, T, s);
+    const OnepoleTvBackwardTileOp op{dy, alpha, y, db, dalpha, T};
+    return lookback::scan_rows(op, op.aligned(), scratch, rows, T, s);
   }
   const OnepoleBackwardTileOp op{dy, alpha, y, db, T};
   return lookback::scan_rows(op, op.aligned(), scratch, rows, T, s, dalpha);

@@ -25,10 +25,16 @@ pole near 1 costs it no accuracy. On an NVIDIA H100 80GB HBM3 at 700 W it
 takes 0.039 ms at 32 x 262,144 (1.7 TB/s, twice the bound; the three-pass
 scan took 0.120) and 0.017 ms at 8 x 262,144 (PERF.md, section 6;
 ``chip_smoke.py``, ``scripts/time_scan1p_cuda.py``). With a
-per-sample alpha (K4, on no path) the pole varies along the row, which a
-one-word carry cannot hold; that case stays on the three-pass chunked scan
-of ``csrc/scan_common.cuh`` (chunk totals, a scan of the totals per row, and
-a pass that applies each chunk's carry-in), which reads b and alpha twice.
+per-sample alpha (K4, on no path) the multiplicative part of a tile's map
+is the product of its alphas, which no reader can compute from a pole: the
+same kernel stages b and alpha (32 KB a tile of 4,096), each sample's alpha
+is its map's coefficient, and the tiles publish two words, A and B (the
+driver's ``GatedAffine``). A product of small alphas underflows to 0, which
+is right to double precision: the earlier state's weight is below 1e-308.
+It reads b and alpha and writes y, 12 bytes a sample, once each: 100.7 MB
+at 32 x 262,144, a bound of 30.0 us. On an NVIDIA H100 80GB HBM3 at 700 W
+it takes 0.052 ms there (1.9 TB/s, 1.7 times the bound; the three-pass
+scan it replaced took 0.134) and 0.022 ms at 8 x 262,144.
 
 The backward, ``onepole_core_backward(dy, alpha, y)``, replaces the VJPs of
 ``onepole_scan`` (scan1p.py:142-150) and of ``onepole_scan_tv`` (K4,
@@ -43,7 +49,17 @@ tile, then by the row's last tile in a fixed order; one kernel and one
 cudaMemsetAsync a call. On an NVIDIA H100 80GB HBM3 at 700 W it takes
 0.036 ms at 32 x 131,072 (1.4 TB/s, 2.4 times the bound; the three-pass
 scan took 0.078) and 0.018 ms at 8 x 131,072 (PERF.md, section 6). With a
-per-sample alpha (K4's backward) it runs on the three-pass scan. ``onepole_core`` is an ``autograd.Function`` over both
+per-sample alpha (K4's backward) the coefficient of sample n is the next
+sample's alpha, read past the thread's last item from the tile and past
+the tile's end from device memory (the row's last sample's multiplies the
+zero state and is 0); dy and alpha are staged before the scan and y after
+(48 KB a tile), the tiles carry (A, B) as K4's do, and db and dalpha (per
+sample) are written in dy's and alpha's slots of the tile. It reads dy,
+alpha and y and writes db and dalpha, 20 bytes a sample: 83.9 MB at 32 x
+131,072, a bound of 25.0 us. On an NVIDIA H100 80GB HBM3 at 700 W it
+takes 0.044 ms there (1.9 TB/s, 1.8 times the bound; the three-pass scan
+took 0.124) and 0.019 ms at 8 x 131,072. Every one of these kernels takes
+any number of rows. ``onepole_core`` is an ``autograd.Function`` over both
 halves.
 
 K3, ``release_min_scan(g, alpha)``, is the release stage of the decoupled
@@ -263,18 +279,9 @@ def _check_rows(name: str, x: torch.Tensor, alpha: torch.Tensor, *more: torch.Te
         raise ValueError(f"the {name} kernel runs on a CUDA device, not {x.device}")
 
 
-def _check_three_pass_rows(name: str, rows: int) -> None:
-    """The three-pass scan (K4 and its backward) runs one grid row a row of
-    the input: at most 65,535."""
-    if rows > 65535:
-        raise ValueError(f"{name} takes at most 65535 rows, got {rows}")
-
-
 def _launch(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     _check(b, alpha)
     per_sample = alpha.ndim == 2
-    if per_sample:
-        _check_three_pass_rows("onepole_core with a per-sample alpha", b.shape[0])
     y = torch.empty_like(b)
     if b.numel() == 0:
         return y
@@ -300,8 +307,6 @@ def _launch(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 def _launch_backward(dy: torch.Tensor, alpha: torch.Tensor, y: torch.Tensor):
     _check(dy, alpha, y)
     per_sample = alpha.ndim == 2
-    if per_sample:
-        _check_three_pass_rows("onepole_core_backward with a per-sample alpha", dy.shape[0])
     db = torch.empty_like(dy)
     dalpha = torch.empty_like(alpha)
     if dy.numel() == 0:

@@ -7,12 +7,13 @@ port's CUDA libraries.
 BUILD_A and BUILD_B are the ``build/diffmst_torch_kernels`` directories of
 two checkouts, each built first (``python3 -c "from diffmst_torch.kernels
 import _build; _build.build_kernels()"`` from the checkout's root). For each
-of ``scan1p.cu`` and ``comp_fused.cu`` it disassembles both libraries with
-the toolkit's ``cuobjdump -sass``, matches kernels by their demangled names
-(nvcc names an anonymous namespace by its file, so mangled names differ
-between builds) and prints whether each kernel's instructions are identical,
-or which differ, or that it exists in one build only. It shows whether a
-change to a shared header left other kernels' code as it was.
+of ``scan1p.cu``, ``comp_fused.cu`` and ``iir_fused.cu`` it disassembles
+both libraries with the toolkit's ``cuobjdump -sass``, matches kernels by
+their demangled names (nvcc names an anonymous namespace by its file, so
+mangled names differ between builds) and prints whether each kernel's
+instructions are identical, or which differ, or that it exists in one build
+only. It shows whether a change to a shared header left other kernels' code
+as it was.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def main() -> int:
     if len(sys.argv) != 3:
         raise SystemExit(__doc__)
     a_dir, b_dir = (pathlib.Path(p) for p in sys.argv[1:])
-    for src in ("scan1p", "comp_fused"):
+    for src in ("scan1p", "comp_fused", "iir_fused"):
         a = kernels(next(a_dir.glob(f"{src}-*.so")))
         b = kernels(next(b_dir.glob(f"{src}-*.so")))
         for f in sorted(set(a) | set(b)):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K1 and K3 (``diffmst_torch/kernels/scan1p.py``) and their
-backward kernels on one CUDA card at the console's shapes.
+"""Time the port's K1, K3 and K4 (``diffmst_torch/kernels/scan1p.py``) and
+their backward kernels on one CUDA card at the console's shapes.
 
     python3 scripts/time_scan1p_cuda.py [CHECKOUT] [LABEL] [--causal-steps N]
 
@@ -11,7 +11,11 @@ card: run it for A, B, B, A in one command. It times K1 (the one-pole with a
 row's alpha: attacks of 1-250 ms on the compressor's gains in dB) and K3
 (the release min-scan: releases of 10-250 ms) at 32 and 8 rows of 262,144
 samples, the serving shapes, and K1's and K3's backward kernels at 32 and
-8 rows of 131,072, the training shapes. For each it prints the median device time
+8 rows of 131,072, the training shapes; then K4 (the one-pole with a
+per-sample alpha: attacks of 1-250 ms drawn per sample) at 32 and 8 rows
+of 262,144 and its backward at 32 and 8 rows of 131,072, whose inputs are
+drawn after the others', so that theirs stay those of earlier versions of
+this script. For each it prints the median device time
 (``chip_smoke.time_ms`` of the checkout: 20 calls, L2 overwritten before
 each), the achieved TB/s of the bytes the function must move, and the
 largest distance from the plain version: in dB for the forward kernels, of
@@ -134,8 +138,24 @@ def main() -> int:
         want = scan1p.release_min_scan_backward_plain(dy, g, a3, y3)
         report("K3-bwd", rows, 131072, ms, 16, f"dg {rel(got[0], want[0]):.3g}, dalpha"
                f" {rel(got[1], want[1]):.3g} of their max-abs off the plain version")
+    for rows, t in ((32, 262144), (8, 262144), (32, 131072), (8, 131072)):
+        g, _, _ = gains(rows, t)
+        a4 = _ballistics_coeff(1.0 + 249.0 * torch.rand(rows, t, device=dev, generator=gen), cs.SR)
+        b4 = ((1.0 - a4) * g).contiguous()
+        if t == 262144:
+            ms = cs.time_ms(lambda: scan1p.onepole_core(b4, a4), flush)
+            err = (scan1p.onepole_core(b4, a4) - scan1p.onepole_core_plain(b4, a4)).abs().max().item()
+            report("K4", rows, t, ms, 12, f"max_abs {err:.3g} dB off the plain version")
+            continue
+        dy = torch.randn(rows, t, device=dev, generator=gen)
+        y4 = scan1p.onepole_core(b4, a4)
+        ms = cs.time_ms(lambda: scan1p.onepole_core_backward(dy, a4, y4), flush)
+        got = scan1p.onepole_core_backward(dy, a4, y4)
+        want = scan1p.onepole_core_backward_plain(dy, a4, y4)
+        report("K4-bwd", rows, t, ms, 20, f"db {rel(got[0], want[0]):.3g}, dalpha"
+               f" {rel(got[1], want[1]):.3g} of their max-abs off the plain version")
     if steps:
-        del g, a1, a3, dy, y1, y3, got, want, flush
+        del g, a1, a3, a4, b4, dy, y1, y3, y4, got, want, flush
         torch.cuda.empty_cache()
         causal_steps(cs, steps, label)
     print(torch.cuda.get_device_name(0), flush=True)

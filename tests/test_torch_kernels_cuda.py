@@ -7,13 +7,13 @@ which the card's machine does not have):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Shapes are ragged on purpose: T below, at and just past one 2,048-sample
-block (K5's forward, K2's, K1's with a row's alpha, K3's and their
-backward kernels: one 4,096-sample chunk or tile; K2's backward: 2,048),
-and row counts that fill no warp. Tolerances: 1e-5 in dB on K1 and
-K3 (both versions compose in float64 and round once), 1e-5 on K2's audio
-and 1e-5 of K5's peak. The backward kernels are held against their plain
-versions at 1e-5 of each output's max-abs, and at 1e-4 on the per-row sums
-(both add in float64, in another order).
+block (K5's forward, K2's, K1's, K3's and K4's and their backward
+kernels: one 4,096-sample chunk or tile; K2's backward: 2,048), and row
+counts that fill no warp. Tolerances: 1e-5 in dB on K1, K3 and K4 (both
+versions compose in float64 and round once), 1e-5 on K2's audio and 1e-5
+of K5's peak. The backward kernels are held against their plain versions
+at 1e-5 of each output's max-abs (K4's dalpha, per sample, too), and at
+1e-4 on the per-row sums (both add in float64, in another order).
 """
 
 import numpy as np
@@ -322,49 +322,61 @@ def test_release_min_scan_backward_kernel_matches_plain(card, rows, t):
 
 def _scan_case(card, rows, t, seed, alpha=None):
     """K1's input b = (1 - a) g with attacks of 1-250 ms, K3's gains g with
-    releases of 10-250 ms (or ``alpha`` on every row of both), and a
-    cotangent dy for their backward kernels."""
+    releases of 10-250 ms, K4's per-sample alpha with attacks of 1-250 ms
+    drawn per sample (or ``alpha`` on every row of K1 and K3, and within
+    1e-5 of it on every sample of K4), and a cotangent dy for the backward
+    kernels."""
     gen = torch.Generator().manual_seed(seed)
     g, a3 = _gains_db(gen, rows, t, card)
     a1 = _alpha(gen, rows, card)
-    if alpha is not None:
-        a1, a3 = (torch.full((rows,), alpha, device=card) for _ in range(2))
     dy = torch.randn(rows, t, generator=gen).to(card)
-    return ((1.0 - a1)[:, None] * g).contiguous(), a1, g, a3, dy
+    if alpha is None:
+        a4 = _alpha(gen, rows * t, card).reshape(rows, t)
+    else:
+        a1, a3 = (torch.full((rows,), alpha, device=card) for _ in range(2))
+        a4 = (alpha * (1.0 - 1e-5 * torch.rand(rows, t, generator=gen))).to(card)
+    return ((1.0 - a1)[:, None] * g).contiguous(), a1, g, a3, dy, a4.contiguous()
 
 
-def _scan_calls(b, a1, g, a3, dy):
-    """K1, K3, and their backward kernels on K1's and K3's outputs:
-    (y1, y3, (db, dalpha), (dg, dalpha))."""
+def _scan_calls(b, a1, g, a3, dy, a4):
+    """K1, K3, K4 (on b4 = (1 - a4) g) and their backward kernels on their
+    outputs: (y1, y3, y4, (db, dalpha), (dg, dalpha), (db4, dalpha4))."""
     y1 = scan1p.onepole_core(b, a1)
     y3 = scan1p.release_min_scan(g, a3)
-    return (y1, y3, scan1p.onepole_core_backward(dy, a1, y1),
-            scan1p.release_min_scan_backward(dy, g, a3, y3))
+    y4 = scan1p.onepole_core(((1.0 - a4) * g).contiguous(), a4)
+    return (y1, y3, y4, scan1p.onepole_core_backward(dy, a1, y1),
+            scan1p.release_min_scan_backward(dy, g, a3, y3),
+            scan1p.onepole_core_backward(dy, a4, y4))
 
 
 def _flat(outs):
-    y1, y3, (db, da1), (dg, da3) = outs
-    return y1, y3, db, da1, dg, da3
+    y1, y3, y4, (db, da1), (dg, da3), (db4, da4) = outs
+    return y1, y3, y4, db, da1, dg, da3, db4, da4
 
 
-_SCAN_COUNTERS = (scan1p.onepole_core, scan1p.release_min_scan, scan1p.onepole_core_backward,
-                  scan1p.release_min_scan_backward)
+# (wrapper, counter): K1, K3, K4, K1-bwd, K3-bwd, K4-bwd
+_SCAN_COUNTERS = ((scan1p.onepole_core, "launches"), (scan1p.release_min_scan, "launches"),
+                  (scan1p.onepole_core, "launches_per_sample"),
+                  (scan1p.onepole_core_backward, "launches"),
+                  (scan1p.release_min_scan_backward, "launches"),
+                  (scan1p.onepole_core_backward, "launches_per_sample"))
 
 
-def _check_scan_kernels(b, a1, g, a3, dy, plain_dtype=torch.float32):
-    """K1 (a row's alpha), K3 and their backward kernels, the single-pass
-    look-back kernels, against their plain versions run in ``plain_dtype``:
-    K1 and K3 within 1e-5 dB, or within 1e-5 of the max-abs against float64;
-    db and dg within 1e-5 and the dalpha row sums within 1e-4 of their
-    max-abs; one launch a call."""
-    before = [c.launches for c in _SCAN_COUNTERS]
-    y1, y3, (db, da1), (dg, da3) = _scan_calls(b, a1, g, a3, dy)
+def _check_scan_kernels(b, a1, g, a3, dy, a4, plain_dtype=torch.float32):
+    """K1, K3, K4 and their backward kernels, the single-pass look-back
+    kernels, against their plain versions run in ``plain_dtype``: K1, K3 and
+    K4 within 1e-5 dB, or within 1e-5 of the max-abs against float64; db,
+    dg and K4's dalpha (per sample) within 1e-5 and the dalpha row sums of
+    K1 and K3 within 1e-4 of their max-abs; one launch a call."""
+    before = [getattr(fn, c) for fn, c in _SCAN_COUNTERS]
+    y1, y3, y4, (db, da1), (dg, da3), (db4, da4) = _scan_calls(b, a1, g, a3, dy, a4)
     torch.cuda.synchronize()
-    assert [c.launches - n for c, n in zip(_SCAN_COUNTERS, before)] == [1, 1, 1, 1]
+    assert [getattr(fn, c) - n for (fn, c), n in zip(_SCAN_COUNTERS, before)] == [1] * 6
     cast = lambda *ts: [t.to(plain_dtype) for t in ts]  # noqa: E731
     want1 = scan1p.onepole_core_plain(*cast(b, a1))
     want3 = scan1p.release_min_scan_plain(*cast(g, a3))
-    for name, y, w in (("K1", y1, want1), ("K3", y3, want3)):
+    want4 = scan1p.onepole_core_plain(*cast(((1.0 - a4) * g).contiguous(), a4))
+    for name, y, w in (("K1", y1, want1), ("K3", y3, want3), ("K4", y4, want4)):
         assert bool(torch.isfinite(y).all()), name
         if plain_dtype == torch.float64:
             assert _rel(y, w) <= 1e-5, name
@@ -372,34 +384,40 @@ def _check_scan_kernels(b, a1, g, a3, dy, plain_dtype=torch.float32):
             assert (y.double() - w.double()).abs().max().item() <= 1e-5, name
     want1 = scan1p.onepole_core_backward_plain(*cast(dy, a1, y1))
     want3 = scan1p.release_min_scan_backward_plain(*cast(dy, g, a3, y3))
-    for name, got, want in (("K1-bwd", (db, da1), want1), ("K3-bwd", (dg, da3), want3)):
+    want4 = scan1p.onepole_core_backward_plain(*cast(dy, a4, y4))
+    for name, got, want, sums_tol in (("K1-bwd", (db, da1), want1, 1e-4),
+                                      ("K3-bwd", (dg, da3), want3, 1e-4),
+                                      ("K4-bwd", (db4, da4), want4, 1e-5)):
         assert all(bool(torch.isfinite(v).all()) for v in got), name
         assert _rel(got[0], want[0]) <= 1e-5, name
-        assert _rel(got[1], want[1]) <= 1e-4, name
+        assert _rel(got[1], want[1]) <= sums_tol, name
     return y1, y3
 
 
 @pytest.mark.parametrize("t", [1, 2, 3, 5, 2049, 4097, 4100, 10001])
 @pytest.mark.parametrize("rows", [1, 8, 33])
 def test_scan_lookback_kernels_match_plain(card, rows, t):
-    """K1, K3 and their backward kernels at ragged shapes: one tile or a few
-    (tiles of 4,096), the row's start off 16 bytes (T % 4 != 0: 4-byte
+    """K1, K3, K4 and their backward kernels at ragged shapes: one tile or a
+    few (tiles of 4,096), the row's start off 16 bytes (T % 4 != 0: 4-byte
     copies) or on them (4100)."""
     _check_scan_kernels(*_scan_case(card, rows, t, seed=rows * t + 21))
 
 
 def test_scan_lookback_holds_over_256_tiles_at_a_pole_of_0_9998(card):
     """4 x (2^20 + 3) samples, 257 tiles a row at 4,096 samples, alpha 0.9998
-    on K1, K3 and their backward kernels: the look-back's float64 carries
-    against the plain versions run in float64."""
+    on K1, K3 and their backward kernels, and per-sample alphas within 1e-5
+    of it on K4 and K4's backward: the look-back's float64 carries against
+    the plain versions run in float64."""
     _check_scan_kernels(*_scan_case(card, 4, 2**20 + 3, seed=22, alpha=0.9998),
                         plain_dtype=torch.float64)
 
 
 def test_scan_lookback_at_a_pole_whose_powers_underflow(card):
-    """alpha 0.05 on K1, K3 and their backward kernels: alpha^4096 is 0, so
-    K3's look-back meets 0 * inf (an identity's C), which fmin drops; 8 x
-    300,000 samples, 74 tiles a row, two groups and a partial one."""
+    """alpha 0.05 on K1, K3 and their backward kernels, and about 0.05 on
+    every sample of K4 and its backward: alpha^4096 is 0, so K3's look-back
+    meets 0 * inf (an identity's C), which fmin drops, and K4's tiles carry
+    a product A of 0; 8 x 300,000 samples, 74 tiles a row, two groups and a
+    partial one."""
     _check_scan_kernels(*_scan_case(card, 8, 300000, seed=28, alpha=0.05))
 
 
@@ -409,8 +427,12 @@ def test_scan_lookback_min_scan_backward_with_clamps_across_tiles(card):
     gate reads g across a tile's end) and of every thread block's half
     tile; and over stretches of held gains that cross tiles, where y[n-1] ==
     g[n] (ties take the clamp); 8 x 300,003 samples at release poles of
-    10-250 ms and of 0.9998."""
-    b, a1, g, a3, dy = _scan_case(card, 8, 300003, seed=29)
+    10-250 ms and of 0.9998. K4 and its backward with alpha 0 at the same
+    samples: a zero coefficient on every tile's edges, the backward's (the
+    next sample's alpha) one sample earlier."""
+    b, a1, g, a3, dy, a4 = _scan_case(card, 8, 300003, seed=29)
+    a4[:, ::2048] = 0.0
+    a4[:, 2047::2048] = 0.0
     a3[::2] = 0.9998
     t = g.shape[1]
     g[:, ::2048] = -60.0
@@ -423,7 +445,7 @@ def test_scan_lookback_min_scan_backward_with_clamps_across_tiles(card):
     # clamped at every tile's start before the held stretches (y is causal)
     assert not bool((y_prev < g)[:, : t // 2 : 2048].any())
     assert int((y_prev[4:, t // 2 :] == g[4:, t // 2 :]).sum()) > t // 4  # ties
-    _check_scan_kernels(b, a1, g, a3, dy)
+    _check_scan_kernels(b, a1, g, a3, dy, a4)
 
 
 def test_scan_lookback_runs_more_tiles_than_are_resident(card):
@@ -433,7 +455,8 @@ def test_scan_lookback_runs_more_tiles_than_are_resident(card):
 
 
 def test_scan_lookback_kernels_are_deterministic(card):
-    """Three calls of each kernel give bit-identical outputs and row sums."""
+    """Three calls of each kernel give bit-identical outputs and row sums
+    (K4's backward: dalpha per sample)."""
     case = _scan_case(card, 33, 100003, seed=24)
     runs = [_flat(_scan_calls(*case)) for _ in range(3)]
     torch.cuda.synchronize()
@@ -468,15 +491,19 @@ def test_scan_lookback_takes_more_than_65535_rows(card):
 
 
 def test_scan_lookback_is_one_kernel_and_one_memset_a_call(card):
-    """A trace of one call of K1 (a row's alpha), of K3 and of their
-    backward kernels shows one kernel launch, one memset and no copy each."""
+    """A trace of one call of K1 (a row's alpha), of K3, of K4 (a per-sample
+    alpha) and of their backward kernels shows one kernel launch, one memset
+    and no copy each."""
     from torch.profiler import ProfilerActivity, profile
 
-    b, a1, g, a3, dy = _scan_case(card, 8, 10001, seed=27)
-    y1, y3 = scan1p.onepole_core(b, a1), scan1p.release_min_scan(g, a3)
+    b, a1, g, a3, dy, a4 = _scan_case(card, 8, 10001, seed=27)
+    b4 = ((1.0 - a4) * g).contiguous()
+    y1, y3, y4 = scan1p.onepole_core(b, a1), scan1p.release_min_scan(g, a3), scan1p.onepole_core(b4, a4)
     for fn in (lambda: scan1p.onepole_core(b, a1), lambda: scan1p.release_min_scan(g, a3),
+               lambda: scan1p.onepole_core(b4, a4),
                lambda: scan1p.onepole_core_backward(dy, a1, y1),
-               lambda: scan1p.release_min_scan_backward(dy, g, a3, y3)):
+               lambda: scan1p.release_min_scan_backward(dy, g, a3, y3),
+               lambda: scan1p.onepole_core_backward(dy, a4, y4)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()

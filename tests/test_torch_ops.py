@@ -490,6 +490,56 @@ def test_minscan_backward_lookback_decomposition_matches_plain(tile, t):
     _rel_close(dalpha, da_p.numpy(), 1e-12, "dalpha")
 
 
+def _per_sample_poles(rng, t, tile):
+    """Four rows of per-sample one-pole coefficients (float32 values, as
+    float64): poles near 0.9998; attack poles of 1-250 ms drawn per sample;
+    0.05, whose products underflow to 0 over a tile; and 0.999 with 0 at the
+    first and last sample of every tile, so that a zero coefficient falls on
+    every tile and group boundary."""
+    alpha = np.stack([1.0 - 2e-4 * rng.uniform(0.5, 1.5, t), _attack_alpha(rng, t),
+                      np.full(t, 0.05), np.full(t, 0.999)]).astype(np.float32).astype(np.float64)
+    alpha[3, ::tile] = alpha[3, tile - 1 :: tile] = 0.0
+    return alpha
+
+
+@pytest.mark.parametrize("tile,t", [(_SCAN_TILE, 10001), (16, 5000)], ids=["tile_k4", "tile16_313"])
+def test_onepole_per_sample_lookback_decomposition_matches_plain(tile, t):
+    """The algebra of K4's single-pass kernel (a per-sample alpha), emulated
+    in float64: each sample's alpha its map's coefficient, each tile's and
+    group's map carried as the two words (A, B), the partial last tile
+    included. Held against onepole_core_plain at 1e-12 of its max-abs, on
+    gains in dB, over the rows of _per_sample_poles."""
+    rng = np.random.default_rng(46)
+    alpha = _per_sample_poles(rng, t, tile)
+    b = (1.0 - alpha) * rng.uniform(-40.0, 0.0, size=alpha.shape)
+    y, _ = _lookback_scan((alpha, b), None, tile, reverse=False)
+    want = scan1p.onepole_core_plain(torch.from_numpy(b), torch.from_numpy(alpha)).numpy()
+    assert np.isfinite(y).all()
+    _rel_close(y, want, 1e-12, "y")
+
+
+@pytest.mark.parametrize("tile,t", [(_SCAN_TILE, 10001), (16, 5000)], ids=["tile_k4bwd", "tile16_313"])
+def test_onepole_per_sample_backward_lookback_decomposition_matches_plain(tile, t):
+    """The algebra of K4's backward single-pass kernel, emulated in float64:
+    the adjoint in reversed time with the coefficients shifted by one
+    (sample n's is alpha[n+1]; the row's last sample's, which multiplies the
+    zero state, is 0), the partial tile first, (A, B) carried a tile and a
+    group, and dalpha[n] = s[n] * y[n-1] per sample. Held against
+    onepole_core_backward_plain at 1e-12 of each output's max-abs, over the
+    rows of _per_sample_poles."""
+    rng = np.random.default_rng(47)
+    alpha = _per_sample_poles(rng, t, tile)
+    y = rng.uniform(-40.0, 0.0, size=alpha.shape)
+    dy = rng.normal(size=alpha.shape)
+    coef = np.pad(alpha[:, 1:], ((0, 0), (0, 1)))  # alpha[n+1]
+    s, _ = _lookback_scan((coef, dy), None, tile, reverse=True)
+    dalpha = s * np.pad(y[:, :-1], ((0, 0), (1, 0)))
+    db_p, da_p = scan1p.onepole_core_backward_plain(*(torch.from_numpy(a) for a in (dy, alpha, y)))
+    assert np.isfinite(s).all()
+    _rel_close(s, db_p.numpy(), 1e-12, "db")
+    _rel_close(dalpha, da_p.numpy(), 1e-12, "dalpha")
+
+
 def test_kernel_wrappers_take_plain_version_on_cpu():
     """On CPU tensors no kernel launches: both launch counters stay at 0."""
     scan1p.onepole_core.launches = 0
