@@ -51,7 +51,15 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
  11. training-causal: two Method-1 steps with the causal console (K3, K1 and
      K5 forward and backward), and the console's gradients at the step's
      predicted parameters through the kernels against the same gradients
-     through the plain versions on the card.
+     through the plain versions on the card;
+ 12. cli: ``main_torch.py`` as a user runs it, each command a subprocess:
+     a synthetic corpus (``scripts/make_synth_corpus_torch.py``, 4 + 1
+     songs of 12 s), ``fit`` of 3 steps at full width on the shipped
+     configs (K2), a resume to step 6, ``validate`` and ``predict``; their
+     steps/s, buffer reloads, checkpoint bytes and seconds, peak memory;
+     then the fit's three steps through ``main_torch.main`` in this process
+     (TF32 off; the subprocesses run at PyTorch's defaults, cuDNN TF32 on),
+     whose K2 and K2-bwd launches it counts.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -61,6 +69,7 @@ matrix products and convolutions run without TF32.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import pathlib
 import re
@@ -1111,7 +1120,7 @@ def phase_training():
          f" {audio_s / per_step:.1f} s of audio a second ({audio_s:.2f} s a step);"
          f" step 1 {walls[0]:.3f} s; peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
     launches = {k: sum(c[k] for c in all_counts) + k1_counts[k] for k in all_counts[0]}
-    return system, batch, flags, launches
+    return system, batch, flags, launches, 1.0 / per_step
 
 
 def phase_train_profile(system, batch, flags):
@@ -1257,6 +1266,153 @@ def phase_training_causal():
     return launches
 
 
+# ---------------------------------------------------------------- the CLI
+
+CLI_CONFIGS = ("configs/config.yaml", "configs/optimizer.yaml", "configs/data/synthetic-8.yaml",
+               "configs/models/naive.yaml")
+CLI_SONGS = (4, 1, 12.0)  # train songs, val songs, seconds
+
+
+def _run_cli(root: pathlib.Path, argv: list, what: str, timeout: float = 300.0):
+    """Run ``python3 <argv>`` from the repository root, as a user types it;
+    return (stdout, wall seconds). A non-zero exit raises with the end of
+    its output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=root, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"check failed: {what} exited {proc.returncode} after {wall:.1f} s:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, wall
+
+
+def _cli_numbers(out: str) -> dict:
+    """What a CLI run printed: the [train] lines' steps/s, every logged loss,
+    the buffer reloads, the checkpoints' bytes and seconds, peak memory."""
+    num = r"([-+0-9.eEinfa]+)"
+    return dict(
+        steps_per_sec=[float(x) for x in re.findall(r"^\[train\] .*steps_per_sec=" + num, out, re.M)],
+        train_epochs=[int(x) for x in re.findall(r"^\[train\] .*epoch=(\d+) ", out, re.M)],
+        losses=[float(x) for x in re.findall(r"^\[\w+\] (?:.* )?loss=" + num, out, re.M)],
+        reloads=[(subset, float(sec), native == "True") for subset, sec, native in re.findall(
+            r"^data: (\w+) buffer reloaded: .* in " + num + r" s \(native loader: (\w+)\)", out, re.M)],
+        saved=[(int(b), float(sec)) for b, sec in re.findall(
+            r"^checkpoint: saved .* \((\d+) bytes\) in " + num + " s", out, re.M)],
+        restored=[float(x) for x in re.findall(r"^checkpoint: restored .* in " + num + " s", out, re.M)],
+        peak=[int(x) for x in re.findall(r"^peak card memory: (\d+) bytes", out, re.M)],
+        built=[float(x) for x in re.findall(r"^built: .* in " + num + " s", out, re.M)],
+        epoch_seconds=[float(x) for x in re.findall(r"^\[epoch\] .*epoch_seconds=" + num, out, re.M)],
+    )
+
+
+def phase_cli(root: pathlib.Path, training_steps_per_s: float) -> dict:
+    """``main_torch.py`` as a user runs it, at full width: a synthetic corpus
+    (``scripts/make_synth_corpus_torch.py``), then ``fit`` of 3 steps on the
+    shipped configs (``naive.yaml``'s 190.9 M parameters, the console's
+    default "auto" = K2) with an overlay of the corpus paths and the epoch's
+    size, a resume to step 6, ``validate`` and ``predict``, each a
+    subprocess; then the fit's three steps in this process through
+    ``main_torch.main``, with the kernel counts read around them. Returns
+    those counts."""
+    import tempfile
+
+    import yaml
+
+    from diffmst_torch.data import read_audio
+
+    (root / "build").mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cli_", dir=root / "build"))
+    try:
+        corpus, ckpts = tmp / "corpus", tmp / "ckpts"
+        _, corpus_s = _run_cli(root, ["scripts/make_synth_corpus_torch.py", str(corpus),
+                                      *map(str, CLI_SONGS)], "make_synth_corpus_torch.py")
+        data = {"track_root_dirs": [str(corpus)], "metadata_files": [str(corpus / "meta.yaml")],
+                "num_examples_per_pass": 12, "num_train_passes": 1}
+        trainer = {"max_epochs": 1, "log_every_n_steps": 1, "num_sanity_val_steps": 1,
+                   "default_root_dir": str(ckpts)}
+
+        def overlay(name, trainer_over=()):
+            p = tmp / name
+            p.write_text(yaml.safe_dump({"trainer": {**trainer, **dict(trainer_over)},
+                                         "data": {"init_args": data}}))
+            return [*CLI_CONFIGS, str(p)]
+
+        def cmd(command, configs, *extra):
+            return ["main_torch.py", command, *(a for c in configs for a in ("-c", c)), *extra]
+
+        line(f"[cli] corpus: {CLI_SONGS[0]} train and {CLI_SONGS[1]} val songs of {CLI_SONGS[2]:.0f} s"
+             f" ({sum(f.stat().st_size for f in corpus.rglob('*.wav'))} bytes of WAV) in {corpus_s:.1f} s")
+        last = str(ckpts / "last")
+        runs = {}
+        for name, argv in (
+            ("fit", cmd("fit", overlay("fit.yaml"))),
+            ("resume", cmd("fit", overlay("resume.yaml", {"max_epochs": 2}), "--ckpt_path", last)),
+            ("validate", cmd("validate", overlay("fit.yaml"), "--ckpt_path", last)),
+            ("predict", cmd("predict", overlay("fit.yaml"), "--ckpt_path", last,
+                            "--track_dir", str(corpus / "val_song00"),
+                            "--ref", str(corpus / "val_song00" / "keys_st.wav"),
+                            "--output", str(tmp / "pred.wav"))),
+        ):
+            out, wall = _run_cli(root, argv, f"main_torch.py {name}")
+            runs[name] = n = _cli_numbers(out)
+            require(all(np.isfinite(x) for x in n["losses"]), f"{name}: every logged loss finite ({n['losses']})")
+            line(f"[cli] {name}: exit 0 in {wall:.1f} s; [train] steps/s {n['steps_per_sec']}"
+                 f" (epochs {n['train_epochs']}, {n['epoch_seconds']} s); model built in {n['built']} s;"
+                 f" losses {n['losses']}; buffer reloads {n['reloads']}"
+                 f" (subset, s, native); checkpoints saved {n['saved']} (bytes, s), restored {n['restored']} s;"
+                 f" peak card memory {n['peak']} bytes")
+
+        fit, resume = runs["fit"], runs["resume"]
+        require(len(fit["steps_per_sec"]) == 3 and set(fit["train_epochs"]) == {0},
+                f"fit: 3 logged steps in epoch 0 ({fit})")
+        require(len(resume["steps_per_sec"]) == 3 and set(resume["train_epochs"]) == {1},
+                f"resume: 3 logged steps, starting at epoch 1 ({resume})")
+        meta = json.loads(pathlib.Path(last + ".meta.json").read_text())
+        require(meta["step"] == 6 and meta["next_epoch"] == 2, f"resume ends at step 6, next epoch 2 ({meta})")
+        require(len(resume["restored"]) == 1 and len(runs["validate"]["restored"]) == 1,
+                "resume and validate restore the checkpoint")
+        require(len(fit["saved"]) == 2 and len(resume["saved"]) == 2, "each fit saves last and best")
+        require(all(r[2] for n in runs.values() for r in n["reloads"]), "the native loader ran")
+        mix, _ = read_audio(str(tmp / "pred.wav"))
+        require(mix.shape[0] == 2 and mix.shape[1] > SR and np.isfinite(mix).all() and np.abs(mix).max() > 0,
+                f"predict wrote a finite stereo mix that is not all zeros ({mix.shape})")
+
+        # the fit's three steps in this process, with TF32 off as this script
+        # runs (the subprocesses run at PyTorch's defaults), the counts read
+        # around them
+        import main_torch
+
+        torch.cuda.empty_cache()
+        inproc = overlay("in_process.yaml", {"num_sanity_val_steps": 0, "check_val_every_n_epoch": 1000,
+                                             "enable_checkpointing": False})
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            main_torch.main(cmd("fit", inproc)[1:])
+        counts = read_counts()
+        here = _cli_numbers(out.getvalue())
+        require(all(np.isfinite(x) for x in here["losses"]) and len(here["steps_per_sec"]) == 3,
+                f"in process: three steps, losses finite ({here})")
+        require(counts["K2"] == 12 and counts["K2-bwd"] == 6 and counts["K1"] == counts["K1-bwd"] == 0,
+                f"three CLI steps: 4 K2 forward and 2 K2 backward launches each, no K1 ({counts})")
+
+        def rate(n):
+            return n["steps_per_sec"][1:]  # step 1 carries the first reload and cuDNN's first calls
+
+        line(f"[cli] steps/s (steps 2-3 of each fit): fit {rate(fit)}, resume {rate(resume)} (PyTorch's"
+             f" defaults: cuDNN TF32 on); in this process, TF32 off, {rate(here)}; the [training]"
+             f" phase {training_steps_per_s:.3f} (TF32 off); train buffer reload"
+             f" {[r[1] for n in (fit, resume) for r in n['reloads'] if r[0] == 'train']} s; checkpoint"
+             f" {fit['saved'][0][0]} bytes, saves {[s for n in (fit, resume) for _, s in n['saved']]} s,"
+             f" restores {resume['restored'] + runs['validate']['restored'] + runs['predict']['restored']} s;"
+             f" peak card memory {max(p for n in runs.values() for p in n['peak']) / 2**30:.2f} GiB;"
+             f" native loader ran: True; launches a CLI step {({k: v / 3 for k, v in counts.items()})}")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernel_entry(name, source, replaces, launches, k, **extra):
     """The kernel's entry of the JSON line, with the achieved TB/s of the
     bytes its function must move; the kernel launches and memsets a call,
@@ -1287,11 +1443,13 @@ def main() -> int:
     stream_walls, stream = phase_streaming(model)
     del model
     torch.cuda.empty_cache()
-    system, batch, flags, train = phase_training()
+    system, batch, flags, train, train_rate = phase_training()
     phase_train_profile(system, batch, flags)
     del system, batch
     torch.cuda.empty_cache()
     causal = phase_training_causal()
+    torch.cuda.empty_cache()
+    cli = phase_cli(root, train_rate)
 
     scan_cu, comp_cu, iir_cu = ("diffmst_torch/kernels/csrc/scan1p.cu",
                                 "diffmst_torch/kernels/csrc/comp_fused.cu",
@@ -1303,11 +1461,11 @@ def main() -> int:
 
     def entry(key, name, source, replaces, **extra):
         """Launches: the serving requests (K2's three, K1's "scan" render,
-        the three streaming ones) plus the training steps (four, then two
-        causal ones)."""
-        return kernel_entry(name, source, replaces, serving[key] + training[key], stats[name],
+        the three streaming ones), the training steps (four, then two
+        causal ones) and the CLI's step."""
+        return kernel_entry(name, source, replaces, serving[key] + training[key] + cli[key], stats[name],
                             launches_serving=serving[key], launches_training=training[key],
-                            on_path=True, **extra)
+                            launches_cli=cli[key], on_path=True, **extra)
 
     kernels = [
         entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),

@@ -1,5 +1,6 @@
-"""Training systems (port of ``diffmst_tpu/train``)."""
+"""Training systems and the loop (port of ``diffmst_tpu/train``)."""
 
 from diffmst_torch.train.system import Batch, EffectFlags, System, SystemConfig, lr_schedule
+from diffmst_torch.train.trainer import Trainer
 
-__all__ = ["Batch", "EffectFlags", "System", "SystemConfig", "lr_schedule"]
+__all__ = ["Batch", "EffectFlags", "System", "SystemConfig", "Trainer", "lr_schedule"]

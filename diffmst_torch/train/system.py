@@ -22,7 +22,7 @@ how the tests feed the port the JAX draw.
 
 Not ported: the mesh, the host-side knowledge-engineering mix_fn, and the
 TPU-era optimizer knobs ``adam_mu_dtype`` and ``flatten_optimizer``, which
-raise (ROADMAP Queue 1, items 7 and 10; the mesh is item 12).
+raise (ROADMAP Queue 1, items 5 and 10; the mesh is item 12).
 """
 
 from __future__ import annotations
@@ -122,12 +122,21 @@ class System:
         mix_fn: Callable = naive_random_mix,
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
+        **kwargs,
     ):
-        self.config = config if config is not None else SystemConfig()
+        """Extra keyword arguments take the reference's flat names
+        (``generate_mix``, ``active_eq_epoch``, ``lr``, ``max_epochs``,
+        ``steps_per_epoch``, ...) and override those fields of ``config``, so
+        that the shipped YAML configs build this class; unknown keys are
+        ignored, as in the JAX System (diffmst_tpu/train/system.py:141-170)."""
+        base = dataclasses.asdict(config) if config is not None else {}
+        names = {f.name for f in dataclasses.fields(SystemConfig)}
+        base.update({k: v for k, v in kwargs.items() if k in names})
+        self.config = SystemConfig(**base)
         if self.config.adam_mu_dtype is not None or self.config.flatten_optimizer:
             raise NotImplementedError(
                 "adam_mu_dtype and flatten_optimizer are TPU-era memory and layout "
-                "knobs of the JAX package and are not ported (ROADMAP Queue 1, item 7)"
+                "knobs of the JAX package and are not ported (ROADMAP Queue 1, item 5)"
             )
         self.model = model
         self.mix_console = mix_console
@@ -152,6 +161,38 @@ class System:
         self.notfinite_count = 0  # non-finite gradients in a row
         self._mini_step = 0
         self._acc = None  # running mean of the accumulated gradients
+
+    # ------------------------------------------------------------ state
+    def state_dict(self) -> Dict:
+        """Everything a resumed run needs to take the same next step: what
+        JAX's TrainState holds (parameters and BatchNorm statistics, the
+        optimizer state, the step) with the parts of optax's state that are
+        attributes here (the schedule's count, the accumulation's mini-step
+        and mean, the non-finite count), and the generator's state. The
+        tensors are the live ones: ``utils.checkpoint.save_state`` copies
+        them to the host."""
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "updates": self.updates,
+            "notfinite_count": self.notfinite_count,
+            "mini_step": self._mini_step,
+            "acc": self._acc,
+            "generator": self.generator.get_state(),
+        }
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore a ``state_dict()`` in place, onto the parameters' device."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.updates = int(state["updates"])
+        self.notfinite_count = int(state["notfinite_count"])
+        self._mini_step = int(state["mini_step"])
+        acc = state["acc"]
+        self._acc = None if acc is None else [a.to(p.device) for a, p in zip(acc, self.params)]
+        self.generator.set_state(state["generator"])
 
     def effect_flags(self, epoch: int) -> EffectFlags:
         cfg = self.config

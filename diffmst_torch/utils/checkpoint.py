@@ -1,21 +1,109 @@
-"""Carry weights from the Flax MixStyleTransferModel into the port.
+"""Checkpoints of a training run, and weights from the reference and from Flax.
 
-``state_dict_from_flax`` is the inverse of ``diffmst_tpu/utils/checkpoint.py
-::port_torch_state_dict``: Flax conv kernels HWIO -> OIHW, Dense kernels
-transposed, q/k/v stacked into ``in_proj_weight``/``in_proj_bias``, BatchNorm
-scale/bias/mean/var -> weight/bias/running_mean/running_var, the four learned
-tokens as they are. The port keeps its own copy of the mapping.
+  * ``save_state`` / ``restore_state`` / ``load_meta``: the port's
+    counterparts of ``diffmst_tpu/utils/checkpoint.py``'s orbax functions. A
+    checkpoint is one ``torch.save`` file of ``System.state_dict()`` with every
+    tensor copied to the host, so it loads on any device; beside it,
+    ``<path>.meta.json`` holds the training progress (the Trainer's
+    ``next_epoch``, ``step`` and ``steps_per_epoch``).
+  * ``load_reference_checkpoint``: a reference Lightning ``.ckpt``'s
+    ``model.*`` tensors into the port's model, whose state-dict names are the
+    reference's (the counterpart of ``port_torch_checkpoint``).
+  * ``state_dict_from_flax``: the inverse of ``port_torch_state_dict``:
+    Flax conv kernels HWIO -> OIHW, Dense kernels transposed, q/k/v stacked
+    into ``in_proj_weight``/``in_proj_bias``, BatchNorm scale/bias/mean/var ->
+    weight/bias/running_mean/running_var, the four learned tokens as they are.
+    The port keeps its own copy of the mapping.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax"]
+__all__ = [
+    "save_state",
+    "restore_state",
+    "restore_model",
+    "load_meta",
+    "load_reference_checkpoint",
+    "state_dict_from_flax",
+    "encoder_state_dict",
+]
+
+
+def _to_host(obj: Any) -> Any:
+    """A copy of a nest of dicts, lists and tuples with each tensor on the host."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def save_state(path: str, system, meta: Dict[str, Any] = None) -> int:
+    """Write ``system.state_dict()`` to ``path`` and ``meta`` to
+    ``<path>.meta.json``; return the checkpoint's bytes.
+
+    Tensors reach the host one at a time, so no second copy of the model or
+    the optimizer state is made on the card. The file is written beside
+    ``path`` and renamed onto it, so an interrupted save leaves the previous
+    checkpoint whole.
+    """
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(_to_host(system.state_dict()), tmp)
+    os.replace(tmp, path)
+    if meta is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f)
+    return os.path.getsize(path)
+
+
+def restore_state(path: str, system) -> None:
+    """Load a ``save_state`` checkpoint into ``system`` in place."""
+    state = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True, mmap=True)
+    system.load_state_dict(state)
+
+
+def restore_model(path: str, model: torch.nn.Module) -> None:
+    """Load only the model's weights and BatchNorm statistics of a
+    ``save_state`` checkpoint (for inference)."""
+    state = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True, mmap=True)
+    model.load_state_dict(state["model"])
+
+
+def load_meta(path: str) -> Dict[str, Any]:
+    """The ``save_state`` meta sidecar, or {} where there is none."""
+    p = os.path.abspath(path) + ".meta.json"
+    if os.path.exists(p):
+        with open(p) as f:
+            return json.load(f)
+    return {}
+
+
+def load_reference_checkpoint(path: str, model: torch.nn.Module) -> None:
+    """Load a reference Lightning checkpoint's ``model.*`` tensors into a
+    ``MixStyleTransferModel`` in place (the prefix split of the reference's
+    ``mst/utils.py::load_diffmst``). Every tensor of the model must be in the
+    checkpoint; the checkpoint's other entries are left out, as
+    ``port_torch_checkpoint`` leaves them."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = {k[len("model."):]: v for k, v in ckpt["state_dict"].items() if k.startswith("model.")}
+    own = model.state_dict()
+    missing = sorted(k for k in own if k not in sd and not k.endswith("num_batches_tracked"))
+    if missing:
+        raise KeyError(f"{path}: the checkpoint lacks {len(missing)} of the model's tensors, "
+                       f"e.g. {missing[:3]}")
+    model.load_state_dict({k: sd[k] for k in own if k in sd}, strict=False)
 
 
 def _t(a) -> torch.Tensor:
@@ -30,14 +118,26 @@ def _cnn14(params: Dict, stats: Dict, prefix: str, sd: Dict[str, torch.Tensor]) 
             sd[f"{prefix}{block}.conv{i}.weight"] = _t(
                 np.asarray(p[f"conv{i}"]["kernel"]).transpose(3, 2, 0, 1)
             )
-            bn, st = p[f"bn{i}"], stats[block][f"bn{i}"]
-            sd[f"{prefix}{block}.bn{i}.weight"] = _t(bn["scale"])
-            sd[f"{prefix}{block}.bn{i}.bias"] = _t(bn["bias"])
-            sd[f"{prefix}{block}.bn{i}.running_mean"] = _t(st["mean"])
-            sd[f"{prefix}{block}.bn{i}.running_var"] = _t(st["var"])
-            sd[f"{prefix}{block}.bn{i}.num_batches_tracked"] = torch.tensor(0)
+            if f"bn{i}" in p:  # absent with encoder_batchnorm=False
+                _batchnorm(p[f"bn{i}"], stats[block][f"bn{i}"], f"{prefix}{block}.bn{i}", sd)
     sd[f"{prefix}fc.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
     sd[f"{prefix}fc.bias"] = _t(params["fc"]["bias"])
+
+
+def _batchnorm(p: Dict, st: Dict, prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+    sd[f"{prefix}.running_mean"] = _t(st["mean"])
+    sd[f"{prefix}.running_var"] = _t(st["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def encoder_state_dict(params: Dict, stats: Dict, prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    """A Flax SpectrogramEncoder's variables (its input BatchNorm ``bn``,
+    when it has one, and its Cnn14 ``model``) into ``sd`` under ``prefix``."""
+    if "bn" in params:
+        _batchnorm(params["bn"], stats["bn"], f"{prefix}bn", sd)
+    _cnn14(params["model"], stats.get("model", {}), f"{prefix}model.", sd)
 
 
 def _dense(p: Dict, prefix: str, sd: Dict[str, torch.Tensor]) -> None:
@@ -48,10 +148,10 @@ def _dense(p: Dict, prefix: str, sd: Dict[str, torch.Tensor]) -> None:
 def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """{"params", "batch_stats"} of the Flax MixStyleTransferModel (nested
     dicts of arrays) -> the port's ``state_dict``."""
-    params, stats = variables["params"], variables["batch_stats"]
+    params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     for enc in ("track_encoder", "mix_encoder"):
-        _cnn14(params[enc]["model"], stats[enc]["model"], f"{enc}.model.", sd)
+        encoder_state_dict(params[enc], stats.get(enc, {}), f"{enc}.", sd)
 
     ctrl = params["controller"]
     for tok in ("track_embedding", "mix_embedding", "fx_bus_embedding", "master_bus_embedding"):
