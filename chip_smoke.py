@@ -57,13 +57,14 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      songs of 12 s), ``fit`` of 3 steps at full width on the shipped
      configs (K2), a resume to step 6, ``validate`` and ``predict``; their
      steps/s, buffer reloads, checkpoint bytes and seconds, peak memory;
-     then the fit's three steps through ``main_torch.main`` in this process
-     (TF32 off; the subprocesses run at PyTorch's defaults, cuDNN TF32 on),
-     whose K2 and K2-bwd launches it counts.
+     the parts of each command's model build; then the fit's three steps
+     through ``main_torch.main`` in this process, whose K2 and K2-bwd
+     launches it counts.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
-matrix products and convolutions run without TF32.
+matrix products and convolutions run without TF32, here and in
+``main_torch.py`` (``diffmst_torch.utils.device.use_full_float32``).
 """
 
 from __future__ import annotations
@@ -167,8 +168,9 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from diffmst_torch.utils.device import use_full_float32
+
+    use_full_float32()  # the port's precision, as main_torch.py sets it
     line("[device]", name, "| count", torch.cuda.device_count())
     line("[device] nvidia-smi:", smi)
     line("[device] tf32 off: cudnn.allow_tf32 =", torch.backends.cudnn.allow_tf32,
@@ -1301,7 +1303,10 @@ def _cli_numbers(out: str) -> dict:
             r"^checkpoint: saved .* \((\d+) bytes\) in " + num + " s", out, re.M)],
         restored=[float(x) for x in re.findall(r"^checkpoint: restored .* in " + num + " s", out, re.M)],
         peak=[int(x) for x in re.findall(r"^peak card memory: (\d+) bytes", out, re.M)],
-        built=[float(x) for x in re.findall(r"^built: .* in " + num + " s", out, re.M)],
+        tf32=re.findall(r"^device: .*TF32: cuDNN (\w+), matmul (\w+)", out, re.M),
+        built=[float(x) for x in re.findall(r"^built: .* parameters in " + num + " s", out, re.M)],
+        built_parts=[dict((k, float(v)) for k, v in re.findall(r"([a-z][a-z ]*) " + num + " s", parts))
+                     for parts in re.findall(r"^built: .* s \((.*)\)$", out, re.M)],
         epoch_seconds=[float(x) for x in re.findall(r"^\[epoch\] .*epoch_seconds=" + num, out, re.M)],
     )
 
@@ -1336,7 +1341,7 @@ def phase_cli(root: pathlib.Path, training_steps_per_s: float) -> dict:
             p = tmp / name
             p.write_text(yaml.safe_dump({"trainer": {**trainer, **dict(trainer_over)},
                                          "data": {"init_args": data}}))
-            return [*CLI_CONFIGS, str(p)]
+            return [*(str(root / c) for c in CLI_CONFIGS), str(p)]
 
         def cmd(command, configs, *extra):
             return ["main_torch.py", command, *(a for c in configs for a in ("-c", c)), *extra]
@@ -1357,8 +1362,10 @@ def phase_cli(root: pathlib.Path, training_steps_per_s: float) -> dict:
             out, wall = _run_cli(root, argv, f"main_torch.py {name}")
             runs[name] = n = _cli_numbers(out)
             require(all(np.isfinite(x) for x in n["losses"]), f"{name}: every logged loss finite ({n['losses']})")
+            require(n["tf32"] == [("False", "False")], f"{name}: TF32 off ({n['tf32']})")
             line(f"[cli] {name}: exit 0 in {wall:.1f} s; [train] steps/s {n['steps_per_sec']}"
-                 f" (epochs {n['train_epochs']}, {n['epoch_seconds']} s); model built in {n['built']} s;"
+                 f" (epochs {n['train_epochs']}, {n['epoch_seconds']} s); model built in {n['built']} s"
+                 f" ({n['built_parts']});"
                  f" losses {n['losses']}; buffer reloads {n['reloads']}"
                  f" (subset, s, native); checkpoints saved {n['saved']} (bytes, s), restored {n['restored']} s;"
                  f" peak card memory {n['peak']} bytes")
@@ -1378,9 +1385,9 @@ def phase_cli(root: pathlib.Path, training_steps_per_s: float) -> dict:
         require(mix.shape[0] == 2 and mix.shape[1] > SR and np.isfinite(mix).all() and np.abs(mix).max() > 0,
                 f"predict wrote a finite stereo mix that is not all zeros ({mix.shape})")
 
-        # the fit's three steps in this process, with TF32 off as this script
-        # runs (the subprocesses run at PyTorch's defaults), the counts read
-        # around them
+        # the fit's three steps in this process, the counts read around them;
+        # from the repository root, as the subprocesses run (the configs'
+        # relative paths, logs/metrics.csv)
         import main_torch
 
         torch.cuda.empty_cache()
@@ -1388,7 +1395,7 @@ def phase_cli(root: pathlib.Path, training_steps_per_s: float) -> dict:
                                              "enable_checkpointing": False})
         out = io.StringIO()
         reset_counts()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), contextlib.chdir(root):
             main_torch.main(cmd("fit", inproc)[1:])
         counts = read_counts()
         here = _cli_numbers(out.getvalue())
@@ -1400,9 +1407,9 @@ def phase_cli(root: pathlib.Path, training_steps_per_s: float) -> dict:
         def rate(n):
             return n["steps_per_sec"][1:]  # step 1 carries the first reload and cuDNN's first calls
 
-        line(f"[cli] steps/s (steps 2-3 of each fit): fit {rate(fit)}, resume {rate(resume)} (PyTorch's"
-             f" defaults: cuDNN TF32 on); in this process, TF32 off, {rate(here)}; the [training]"
-             f" phase {training_steps_per_s:.3f} (TF32 off); train buffer reload"
+        line(f"[cli] steps/s (steps 2-3 of each fit, TF32 off): fit {rate(fit)}, resume {rate(resume)},"
+             f" in this process {rate(here)}; the [training] phase {training_steps_per_s:.3f};"
+             f" train buffer reload"
              f" {[r[1] for n in (fit, resume) for r in n['reloads'] if r[0] == 'train']} s; checkpoint"
              f" {fit['saved'][0][0]} bytes, saves {[s for n in (fit, resume) for _, s in n['saved']]} s,"
              f" restores {resume['restored'] + runs['validate']['restored'] + runs['predict']['restored']} s;"

@@ -16,11 +16,6 @@ System in place.
     "best" on the lowest validation loss (``utils.checkpoint.save_state``,
     with the ``next_epoch``/``step``/``steps_per_epoch`` meta); ``fit(resume=
     path)`` restores the System and starts at the meta's ``next_epoch``;
-  * ``fused_steps=K`` runs K steps back to back between logs and saves, as
-    JAX defines it: identical to K sequential steps, with counts, logs and
-    saves advanced by K;
-  * ``profile_steps``: a ``torch.profiler`` trace of those steps, written to
-    ``profile_dir``.
 
 Random streams (JAX splits one key per step; the port draws from
 ``torch.Generator``s, by these rules):
@@ -37,7 +32,10 @@ Random streams (JAX splits one key per step; the port draws from
   * ``validate`` and ``test``: as validation, from a training stream seeded
     ``seed``.
 
-The mesh (``devices`` > 1) is not ported yet: ROADMAP Queue 1, item 12.
+Not ported yet (ROADMAP Queue 1, item 12): the mesh (``devices`` > 1),
+JAX's ``fused_steps`` (K steps in one device dispatch; here, CUDA graphs,
+once a measurement shows the host bounds the step) and ``profile_steps``
+(with ``utils/profiler.py``).
 """
 
 from __future__ import annotations
@@ -156,16 +154,14 @@ class Trainer:
         callbacks: Optional[List] = None,
         mesh=None,
         seed: int = 42,
-        profile_steps: Optional[range] = None,
-        profile_dir: str = "profiles",
         ckpt_every_n_steps: Optional[int] = None,
-        fused_steps: int = 1,
         deterministic_val: bool = False,
         enable_checkpointing: bool = True,
         num_sanity_val_steps: int = 0,
     ) -> None:
-        """The JAX Trainer's arguments. ``num_sanity_val_steps`` defaults to
-        0 here, as in JAX; the CLI applies Lightning's 2."""
+        """The JAX Trainer's arguments but ``fused_steps`` and the profiler's.
+        ``num_sanity_val_steps`` defaults to 0 here, as in JAX; the CLI
+        applies Lightning's 2."""
         if mesh is not None:
             raise NotImplementedError(
                 "the device mesh is not ported to diffmst_torch yet: ROADMAP Queue 1, item 12"
@@ -178,10 +174,7 @@ class Trainer:
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.callbacks = callbacks or []
         self.seed = seed
-        self.profile_steps = profile_steps
-        self.profile_dir = profile_dir
         self.ckpt_every_n_steps = ckpt_every_n_steps
-        self.fused_steps = max(1, int(fused_steps))
         self.deterministic_val = deterministic_val
         self.enable_checkpointing = enable_checkpointing
         self.num_sanity_val_steps = int(num_sanity_val_steps)
@@ -204,38 +197,26 @@ class Trainer:
             )
 
         best_val = float("inf")
-        k = self.fused_steps
         for epoch in range(start_epoch, self.max_epochs):
             flags = system.effect_flags(epoch)
             t_epoch = time.time()
             n_steps = 0
-            logged_blocks = saved_blocks = 0
             metrics = None
             # steps are queued on the card without waiting; the log points
             # synchronize, and steps/s is the wall time over the whole window
             t_sync = time.time()
             steps_since_sync = 0
-            profiler = None
 
-            batches = _prefetch(dm.train_dataloader(), self.device)
-            for i, group in enumerate(self._group_batches(batches)):
-                if self.profile_steps and i == self.profile_steps.start:
-                    profiler = torch.profiler.profile(activities=self._profiler_activities())
-                    profiler.start()
-                for batch in group:
-                    metrics = system.train_step(batch, flags)
-                if profiler is not None and i == self.profile_steps.stop:
-                    self._finish_profile(profiler)
-                    profiler = None
-                n_steps += k
-                steps_since_sync += k
-                if n_steps // self.log_every_n_steps > logged_blocks:
-                    logged_blocks = n_steps // self.log_every_n_steps
+            for batch in _prefetch(dm.train_dataloader(), self.device):
+                metrics = system.train_step(batch, flags)
+                n_steps += 1
+                steps_since_sync += 1
+                if n_steps % self.log_every_n_steps == 0:
                     host = {name: float(v) for name, v in metrics.items()}  # synchronizes
                     now = time.time()
                     sps = steps_since_sync / max(now - t_sync, 1e-9)
                     t_sync, steps_since_sync = now, 0
-                    bs, _, length = group[0].tracks.shape
+                    bs, _, length = batch.tracks.shape
                     host.update(epoch=epoch, steps_per_sec=sps,
                                 realtime_factor=sps * bs * length / _SAMPLE_RATE)
                     self.history.append(host)
@@ -243,15 +224,12 @@ class Trainer:
                 if (
                     self.enable_checkpointing
                     and self.ckpt_every_n_steps
-                    and n_steps // self.ckpt_every_n_steps > saved_blocks
+                    and n_steps % self.ckpt_every_n_steps == 0
                 ):
-                    saved_blocks = n_steps // self.ckpt_every_n_steps
                     # a mid-epoch save: a resume restarts this epoch (the
                     # dataloader has no mid-stream state); the optimizer and
                     # the step count carry over exactly
                     self._save("last", next_epoch=epoch)
-            if profiler is not None:
-                self._finish_profile(profiler)
             if metrics is not None and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             epoch_time = time.time() - t_epoch
@@ -273,34 +251,6 @@ class Trainer:
                 **{f"val/{name}": v for name, v in val_metrics.items()},
             })
         return system
-
-    def _group_batches(self, batches: Iterator[Batch]) -> Iterator[List[Batch]]:
-        """Groups of ``fused_steps`` batches; a short last group raises, as
-        in JAX."""
-        group: List[Batch] = []
-        for b in batches:
-            group.append(b)
-            if len(group) == self.fused_steps:
-                yield group
-                group = []
-        if group:
-            raise ValueError(
-                f"epoch length not divisible by fused_steps={self.fused_steps}: "
-                f"{len(group)} batches left over; set steps_per_epoch to a multiple of fused_steps"
-            )
-
-    def _profiler_activities(self):
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        return acts
-
-    def _finish_profile(self, profiler) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        profiler.stop()
-        os.makedirs(self.profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(self.profile_dir, f"trace_step{self.system.step}.json"))
 
     # ------------------------------------------------------- checkpoints
     def _meta(self, next_epoch: int) -> Dict:

@@ -11,11 +11,14 @@ The shipped YAMLs load unchanged: their class paths (``mst.*``,
 (``diffmst_torch/utils/config.py``). Trainer flags come from the
 ``trainer:`` section; of the ``optimizer:`` section only ``lr`` is read.
 Everything runs on the CUDA device unless ``--device cpu`` is given; without
-a card and without it, the command raises. Run it from the repository root:
-the configs' relative paths (``./data/instrument_name2id.json``) and the
-CSV log (``logs/metrics.csv``) are relative to the working directory.
+a card and without it, the command raises. Float32 is computed in full
+float32, TF32 off (``utils/device.py::use_full_float32``). Run it from the
+repository root: the configs' relative paths
+(``./data/instrument_name2id.json``) and the CSV log (``logs/metrics.csv``)
+are relative to the working directory.
 
-``export`` is not ported yet (ROADMAP Queue 1, item 12).
+``export``, more than one device and ``trainer.fused_steps`` other than 1
+are not ported yet (ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ def build_from_config(cfg: dict, device=None):
     generator seeded ``seed_everything``, so the same seed gives the same
     weights on any device (``MixStyleTransferModel.init``).
     """
+    clock = _Clock()
     from diffmst_torch.callbacks import CSVLogger
     from diffmst_torch.train import System, Trainer
     from diffmst_torch.utils.config import instantiate
@@ -47,16 +51,21 @@ def build_from_config(cfg: dict, device=None):
     dev = resolve_device(device)
     seed = cfg.get("seed_everything", 42)
     trainer_cfg = dict(cfg.get("trainer", {}))
-    _check_single_device(trainer_cfg, dev)
+    _check_ported(trainer_cfg, dev)
 
     model_cfg = cfg.get("model", {})
     init_args = dict(model_cfg.get("init_args", model_cfg))
+    clock.lap("imports")
     with torch.device("meta"):
         model = instantiate(init_args.pop("model"))
-    model = model.to_empty(device=dev).init(torch.Generator().manual_seed(seed)).eval()
+    model = model.to_empty(device=dev)
+    clock.lap("model allocated", dev)
+    model = model.init(torch.Generator().manual_seed(seed)).eval()
+    clock.lap("model init", dev)
     mix_console = instantiate(init_args.pop("mix_console"), device=str(dev))
     loss = instantiate(init_args.pop("loss"))
     mix_fn = instantiate(init_args.pop("mix_fn", "mst.mixing.naive_random_mix"))
+    clock.lap("console and loss", dev)
 
     opt_cfg = cfg.get("optimizer", {}).get("init_args", {})
     if "lr" in opt_cfg:
@@ -67,9 +76,11 @@ def build_from_config(cfg: dict, device=None):
         init_args.setdefault("accumulate_grad_batches", trainer_cfg["accumulate_grad_batches"])
 
     system = System(model, mix_console, loss, mix_fn=mix_fn, device=dev, **init_args)
+    clock.lap("system", dev)
 
     data_cfg = cfg.get("data")
     datamodule = instantiate(data_cfg) if data_cfg else None
+    clock.lap("datamodule")
 
     callbacks = [CSVLogger()]
     for cb in trainer_cfg.get("callbacks", []) or []:
@@ -88,17 +99,42 @@ def build_from_config(cfg: dict, device=None):
         callbacks=callbacks,
         seed=seed,
         ckpt_every_n_steps=trainer_cfg.get("ckpt_every_n_steps", 500),
-        fused_steps=trainer_cfg.get("fused_steps", 1),
         enable_checkpointing=trainer_cfg.get("enable_checkpointing", True),
         deterministic_val=trainer_cfg.get("deterministic_val", False),
         # Lightning's pre-fit sanity check; the reference pins 2
         num_sanity_val_steps=trainer_cfg.get("num_sanity_val_steps", 2),
     )
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"built: {n_params / 1e6:.1f} M parameters in {clock.total():.3f} s ({clock.laps()})",
+          flush=True)
     return system, datamodule, trainer
 
 
-def _check_single_device(trainer_cfg: dict, dev: torch.device) -> None:
-    """Refuse the multi-device settings (``trainer.mesh``, ``devices`` > 1)."""
+class _Clock:
+    """Wall seconds of the parts of ``build_from_config``; a lap on a CUDA
+    device waits for the card first."""
+
+    def __init__(self) -> None:
+        self.start = self.last = time.perf_counter()
+        self.parts = []
+
+    def lap(self, name: str, dev=None) -> None:
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        self.parts.append((name, now - self.last))
+        self.last = now
+
+    def total(self) -> float:
+        return time.perf_counter() - self.start
+
+    def laps(self) -> str:
+        return ", ".join(f"{name} {sec:.3f} s" for name, sec in self.parts)
+
+
+def _check_ported(trainer_cfg: dict, dev: torch.device) -> None:
+    """Refuse the trainer settings the port lacks: more than one device
+    (``trainer.mesh``, ``devices`` > 1) and ``fused_steps`` other than 1."""
     devices = trainer_cfg.get("devices", 1)
     if devices in ("auto", -1):
         devices = torch.cuda.device_count() if dev.type == "cuda" else 1
@@ -106,6 +142,11 @@ def _check_single_device(trainer_cfg: dict, dev: torch.device) -> None:
         raise NotImplementedError(
             "training on more than one device is not ported to diffmst_torch yet: "
             "ROADMAP Queue 1, item 12"
+        )
+    if trainer_cfg.get("fused_steps", 1) != 1:
+        raise NotImplementedError(
+            "trainer.fused_steps (K steps in one device dispatch, CUDA graphs on the card) "
+            "is not ported to diffmst_torch yet: ROADMAP Queue 1, item 12"
         )
 
 
@@ -132,13 +173,14 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from diffmst_torch.utils.config import load_config
-    from diffmst_torch.utils.device import resolve_device
+    from diffmst_torch.utils.device import resolve_device, use_full_float32
 
     if args.command == "export":
         raise NotImplementedError(
             "export is not ported to diffmst_torch yet: ROADMAP Queue 1, item 12"
         )
     dev = resolve_device(args.device)
+    use_full_float32()
     cfg = load_config(args.config)
     if dev.type == "cuda":
         print(f"device: {dev} ({torch.cuda.get_device_name(dev)}); TF32: cuDNN"
@@ -146,11 +188,7 @@ def main(argv=None):
               flush=True)
     else:
         print(f"device: {dev}", flush=True)
-    t0 = time.perf_counter()
     system, datamodule, trainer = build_from_config(cfg, dev)
-    n_params = sum(p.numel() for p in system.model.parameters())
-    print(f"built: {n_params / 1e6:.1f} M parameters in {time.perf_counter() - t0:.3f} s"
-          " (the modules the config names imported, the weights drawn)", flush=True)
 
     if args.command == "predict":
         result = _predict(system, args)

@@ -7,16 +7,17 @@
     ``skip_nonfinite_updates`` on: the next step equals that of the System
     that never stopped, bitwise;
   * the Trainer against a hand loop of ``System.train_step`` over the same
-    batches and generator, with ``fused_steps`` 1 and 2 (and a profiler
-    trace and mid-epoch saves on): bitwise equal parameters, and the tags
-    and keys of JAX's ``_log``;
+    batches and generator (with mid-epoch saves on): bitwise equal
+    parameters, and the tags and keys of JAX's ``_log``;
   * ``num_sanity_val_steps`` 0 and 2: bitwise equal parameters; two
     ``deterministic_val`` passes: equal metrics;
   * ``main_torch.py`` ``fit``, ``fit --ckpt_path last``, ``validate``,
     ``test`` and ``predict`` with ``--device cpu`` on the shipped configs
     with an overlay of paths and sizes (embed 32, n_fft 2048, hop 128, Cnn14
-    width 4, 1 layer, 4 heads, MRSTFT at 512, length 32,768), and without
-    ``--device`` (no card here): an error;
+    width 4, 1 layer, 4 heads, MRSTFT at 512, length 32,768), in full
+    float32 (TF32 off), and without ``--device`` (no card here): an error;
+  * what the port lacks (``export``, more than one device,
+    ``fused_steps`` other than 1) refused, naming its ROADMAP item;
   * the config registry's class paths, ``System``'s flat keywords and the
     CSV sink against the JAX package's.
 
@@ -29,6 +30,7 @@ import csv
 import dataclasses
 import json
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -187,13 +189,10 @@ def test_resume_mid_accumulation_is_bitwise(tmp_path):
 # ----------------------------------------------------------------- Trainer
 
 
-@pytest.mark.parametrize("fused", [1, 2])
-def test_trainer_matches_hand_loop(tmp_path, capsys, fused):
+def test_trainer_matches_hand_loop(tmp_path, capsys):
     data = _Data()
     trainer = Trainer(_system(0), data, max_epochs=1, ckpt_dir=str(tmp_path), log_every_n_steps=1,
-                      seed=7, fused_steps=fused, ckpt_every_n_steps=1,
-                      profile_steps=range(0, 1) if fused == 1 else None,
-                      profile_dir=str(tmp_path / "profiles"))
+                      seed=7, ckpt_every_n_steps=1)
     trainer.fit()
     hand = _system(0)
     hand.generator = torch.Generator().manual_seed(7)
@@ -203,11 +202,10 @@ def test_trainer_matches_hand_loop(tmp_path, capsys, fused):
     assert trainer.system.step == 2
 
     out = capsys.readouterr().out
-    # "last" after every group of steps (ckpt_every_n_steps), then "last" and "best"
-    assert out.count("checkpoint: saved") == 2 // fused + 2
-    assert len(list(tmp_path.glob("profiles/*.json"))) == (fused == 1)  # a trace of the profiled steps
+    # "last" after every step (ckpt_every_n_steps), then "last" and "best"
+    assert out.count("checkpoint: saved") == 2 + 2
     logged = _logged(out)
-    assert [t for t, _ in logged] == ["train"] * (2 // fused) + ["val", "epoch"]
+    assert [t for t, _ in logged] == ["train"] * 2 + ["val", "epoch"]
     assert all(keys == TRAIN_KEYS for t, keys in logged if t == "train")
     assert logged[-2][1] == EVAL_KEYS and logged[-1][1] == EPOCH_KEYS
     meta = json.loads((tmp_path / "best.meta.json").read_text())
@@ -284,8 +282,14 @@ def test_cli_fit_resume_validate_test_predict(tmp_path, corpus, monkeypatch, cap
     cfg = _overlay(tmp_path / "small.yaml", corpus)
     ckpts = tmp_path / "ckpts"
 
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
     main_torch.main(["fit", *cfg, "--device", "cpu"])
-    logged = _logged(capsys.readouterr().out)
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    out = capsys.readouterr().out
+    parts = re.search(r"^built: [0-9.]+ M parameters in [0-9.]+ s \((.*)\)$", out, re.M).group(1)
+    assert re.findall(r"([a-z][a-z ]*) [0-9.]+ s", parts) == [
+        "imports", "model allocated", "model init", "console and loss", "system", "datamodule"]
+    logged = _logged(out)
     assert [t for t, _ in logged] == ["sanity", "train", "train", "val", "epoch"]
     assert [k for _, k in logged] == [EVAL_KEYS, TRAIN_KEYS, TRAIN_KEYS, EVAL_KEYS, EPOCH_KEYS]
     for name in ("last", "best"):
@@ -326,8 +330,14 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, corpus):  # noqa: F811
         main_torch.main(["fit", *cfg])
     with pytest.raises(NotImplementedError, match="item 12"):
         main_torch.main(["export", *cfg, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("trainer", [{"devices": 2}, {"mesh": {"data": 2}}, {"fused_steps": 2}],
+                         ids=["devices", "mesh", "fused_steps"])
+def test_cli_refuses_what_is_not_ported(trainer):
     with pytest.raises(NotImplementedError, match="item 12"):
-        main_torch.build_from_config({"trainer": {"devices": 2}}, "cpu")
+        main_torch.build_from_config({"trainer": trainer}, "cpu")
+    main_torch._check_ported({"devices": 1, "fused_steps": 1}, torch.device("cpu"))
 
 
 def test_registry_model_follows_the_seed():
