@@ -285,27 +285,35 @@ def phase_kernels(form: str):
             s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, shape=shape,
                      achieved_tb_s=nbytes / ms / 1e9)
 
-    def device_ops(fn):
+    def device_ops(fn, attempts=3):
         """The kernel launches, memsets and copies that one call of ``fn``
-        puts on the card, from a torch.profiler trace of that call."""
+        puts on the card, from a torch.profiler trace of that call. Now and
+        then a short trace comes back with no device activity at all, not
+        even the memset: such a trace is taken again, up to ``attempts``
+        traces in all. A trace that holds any device event is the answer."""
         from torch.profiler import ProfilerActivity, profile
 
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+        for trace in range(1, attempts + 1):
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+            line(f"[kernels] trace {trace} of {attempts} recorded no device activity")
         memsets = sum(n.startswith("Memset") for n in names)
         copies = sum(n.startswith("Memcpy") for n in names)
         return dict(kernels=len(names) - memsets - copies, memsets=memsets, copies=copies,
-                    names=[n[:60] for n in names])
+                    names=[n[:60] for n in names], traces=trace)
 
     def traced(name, shape, fn):
         """Requires one call of a single-pass kernel's wrapper to put one
         kernel launch and one memset, and no copy, on the card."""
         ops = device_ops(fn)
-        line(f"[kernels] {name} {shape}, one call traced (torch.profiler): {ops['kernels']} kernel"
-             f" launches, {ops['memsets']} memsets, {ops['copies']} copies ({'; '.join(ops['names'])})")
+        line(f"[kernels] {name} {shape}, one call traced (torch.profiler, trace {ops['traces']}):"
+             f" {ops['kernels']} kernel launches, {ops['memsets']} memsets, {ops['copies']} copies"
+             f" ({'; '.join(ops['names'])})")
         require((ops["kernels"], ops["memsets"], ops["copies"]) == (1, 1, 0),
                 f"one {name} call is one kernel and one memset ({ops})")
         stats[name].update(cuda_launches_per_call=ops["kernels"], memsets_per_call=ops["memsets"])
