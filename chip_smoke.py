@@ -59,7 +59,16 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      steps/s, buffer reloads, checkpoint bytes and seconds, peak memory;
      the parts of each command's model build; then the fit's three steps
      through ``main_torch.main`` in this process, whose K2 and K2-bwd
-     launches it counts.
+     launches it counts;
+ 13. feature-loss: at full width, three Method-1 steps with
+     ``AudioFeatureLoss`` (its terms and gradient on one batch held against
+     the CPU's), three Method-2 steps on stereo reference mixes, two
+     knowledge-engineering (KE) steps with the fx bus (the reverb at
+     65,536 samples, 1,023 taps; KE's host milliseconds), each counting
+     its K2 and K2-bwd launches; a 60 s, 8-track request with the fx bus,
+     "ola" and "streaming" (realtime factor, seam distance); and
+     ``main_torch.py fit`` on ``naive.yaml`` + ``unpaired+feat.yaml`` over
+     [cli]'s corpus and synthetic reference mixes, a subprocess.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -77,6 +86,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -856,11 +866,26 @@ def phase_profile(model):
 CAUSAL = dict(comp_smoother="decoupled", eq_method="scan")
 
 
+def whole_song_render(console, tracks, params, **console_kw):
+    """One render of a whole song (a host array) on the card, with a
+    request's predicted parameters (the kept tracks' rows, as run_diffmst
+    scatters them) and its loudness gains: what seams are measured
+    against."""
+    from diffmst_torch.utils import inference
+
+    tp, fp, mp = params
+    keep, gains, _ = inference._gate(tracks[..., :WINDOW], SR)
+    tp_full = torch.zeros(1, tracks.shape[1], tp.shape[-1], device="cuda")
+    tp_full[0, keep] = tp[0]
+    with torch.no_grad():
+        stems = torch.from_numpy(tracks).cuda() * torch.from_numpy(gains).cuda()[None, :, None]
+        return console(stems, tp_full, fp, mp, **console_kw).mix.cpu().numpy()
+
+
 def phase_streaming(model):
     """Three requests with the seam-free overlap-save render and the causal
     console; the seams of request 1 against one render of the whole song."""
     from diffmst_torch.console import AdvancedMixConsole
-    from diffmst_torch.utils import inference
     from diffmst_torch.utils.inference import run_diffmst
 
     console = AdvancedMixConsole(SR, **CAUSAL)
@@ -899,13 +924,8 @@ def phase_streaming(model):
 
     # Seams: request 1 against one render of the whole song with the same
     # predicted parameters, and the "ola" render's distance from it.
-    tracks, ref, mix, (tp, fp, mp) = first
-    keep, gains, _ = inference._gate(tracks[..., :WINDOW], SR)
-    tp_full = torch.zeros(1, N_TRACKS, tp.shape[-1], device="cuda")
-    tp_full[0, keep] = tp[0]
-    with torch.no_grad():
-        stems = torch.from_numpy(tracks).cuda() * torch.from_numpy(gains).cuda()[None, :, None]
-        one = console(stems, tp_full, fp, mp).mix.cpu().numpy()
+    tracks, ref, mix, params = first
+    one = whole_song_render(console, tracks, params, use_fx_bus=False)
     ola, *_ = run_diffmst(tracks, ref, model, console, render_mode="ola")
     block = WINDOW // 2
     peak = float(np.abs(one).max())
@@ -1251,7 +1271,7 @@ def phase_training_causal():
 
     def console_grads():
         leaves = [t.clone().requires_grad_() for t in (tracks_b, tp, mp)]
-        mix = console(leaves[0], leaves[1], fp, leaves[2]).mix
+        mix = console(leaves[0], leaves[1], fp, leaves[2], use_fx_bus=False).mix
         (mix * w).sum().backward()
         torch.cuda.synchronize()
         return [leaf.grad for leaf in leaves]
@@ -1319,113 +1339,342 @@ def _cli_numbers(out: str) -> dict:
     )
 
 
-def phase_cli(root: pathlib.Path, training_steps_per_s: float) -> dict:
+def phase_cli(root: pathlib.Path, tmp: pathlib.Path, training_steps_per_s: float) -> dict:
     """``main_torch.py`` as a user runs it, at full width: a synthetic corpus
-    (``scripts/make_synth_corpus_torch.py``), then ``fit`` of 3 steps on the
-    shipped configs (``naive.yaml``'s 190.9 M parameters, the console's
-    default "auto" = K2) with an overlay of the corpus paths and the epoch's
-    size, a resume to step 6, ``validate`` and ``predict``, each a
-    subprocess; then the fit's three steps in this process through
+    (``scripts/make_synth_corpus_torch.py``) under ``tmp``, then ``fit`` of
+    3 steps on the shipped configs (``naive.yaml``'s 190.9 M parameters, the
+    console's default "auto" = K2) with an overlay of the corpus paths and
+    the epoch's size, a resume to step 6, ``validate`` and ``predict``, each
+    a subprocess; then the fit's three steps in this process through
     ``main_torch.main``, with the kernel counts read around them. Returns
     those counts."""
-    import tempfile
-
     import yaml
 
     from diffmst_torch.data import read_audio
 
-    (root / "build").mkdir(exist_ok=True)
-    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cli_", dir=root / "build"))
-    try:
-        corpus, ckpts = tmp / "corpus", tmp / "ckpts"
-        _, corpus_s = _run_cli(root, ["scripts/make_synth_corpus_torch.py", str(corpus),
-                                      *map(str, CLI_SONGS)], "make_synth_corpus_torch.py")
-        data = {"track_root_dirs": [str(corpus)], "metadata_files": [str(corpus / "meta.yaml")],
-                "num_examples_per_pass": 12, "num_train_passes": 1}
-        trainer = {"max_epochs": 1, "log_every_n_steps": 1, "num_sanity_val_steps": 1,
-                   "default_root_dir": str(ckpts)}
+    corpus, ckpts = tmp / "corpus", tmp / "ckpts"
+    _, corpus_s = _run_cli(root, ["scripts/make_synth_corpus_torch.py", str(corpus),
+                                  *map(str, CLI_SONGS)], "make_synth_corpus_torch.py")
+    data = {"track_root_dirs": [str(corpus)], "metadata_files": [str(corpus / "meta.yaml")],
+            "num_examples_per_pass": 12, "num_train_passes": 1}
+    trainer = {"max_epochs": 1, "log_every_n_steps": 1, "num_sanity_val_steps": 1,
+               "default_root_dir": str(ckpts)}
 
-        def overlay(name, trainer_over=()):
-            p = tmp / name
-            p.write_text(yaml.safe_dump({"trainer": {**trainer, **dict(trainer_over)},
-                                         "data": {"init_args": data}}))
-            return [*(str(root / c) for c in CLI_CONFIGS), str(p)]
+    def overlay(name, trainer_over=()):
+        p = tmp / name
+        p.write_text(yaml.safe_dump({"trainer": {**trainer, **dict(trainer_over)},
+                                     "data": {"init_args": data}}))
+        return [*(str(root / c) for c in CLI_CONFIGS), str(p)]
 
-        def cmd(command, configs, *extra):
-            return ["main_torch.py", command, *(a for c in configs for a in ("-c", c)), *extra]
+    def cmd(command, configs, *extra):
+        return ["main_torch.py", command, *(a for c in configs for a in ("-c", c)), *extra]
 
-        line(f"[cli] corpus: {CLI_SONGS[0]} train and {CLI_SONGS[1]} val songs of {CLI_SONGS[2]:.0f} s"
-             f" ({sum(f.stat().st_size for f in corpus.rglob('*.wav'))} bytes of WAV) in {corpus_s:.1f} s")
-        last = str(ckpts / "last")
-        runs = {}
-        for name, argv in (
-            ("fit", cmd("fit", overlay("fit.yaml"))),
-            ("resume", cmd("fit", overlay("resume.yaml", {"max_epochs": 2}), "--ckpt_path", last)),
-            ("validate", cmd("validate", overlay("fit.yaml"), "--ckpt_path", last)),
-            ("predict", cmd("predict", overlay("fit.yaml"), "--ckpt_path", last,
-                            "--track_dir", str(corpus / "val_song00"),
-                            "--ref", str(corpus / "val_song00" / "keys_st.wav"),
-                            "--output", str(tmp / "pred.wav"))),
-        ):
-            out, wall = _run_cli(root, argv, f"main_torch.py {name}")
-            runs[name] = n = _cli_numbers(out)
-            require(all(np.isfinite(x) for x in n["losses"]), f"{name}: every logged loss finite ({n['losses']})")
-            require(n["tf32"] == [("False", "False")], f"{name}: TF32 off ({n['tf32']})")
-            line(f"[cli] {name}: exit 0 in {wall:.1f} s; [train] steps/s {n['steps_per_sec']}"
-                 f" (epochs {n['train_epochs']}, {n['epoch_seconds']} s); model built in {n['built']} s"
-                 f" ({n['built_parts']});"
-                 f" losses {n['losses']}; buffer reloads {n['reloads']}"
-                 f" (subset, s, native); checkpoints saved {n['saved']} (bytes, s), restored {n['restored']} s;"
-                 f" peak card memory {n['peak']} bytes")
+    line(f"[cli] corpus: {CLI_SONGS[0]} train and {CLI_SONGS[1]} val songs of {CLI_SONGS[2]:.0f} s"
+         f" ({sum(f.stat().st_size for f in corpus.rglob('*.wav'))} bytes of WAV) in {corpus_s:.1f} s")
+    last = str(ckpts / "last")
+    runs = {}
+    for name, argv in (
+        ("fit", cmd("fit", overlay("fit.yaml"))),
+        ("resume", cmd("fit", overlay("resume.yaml", {"max_epochs": 2}), "--ckpt_path", last)),
+        ("validate", cmd("validate", overlay("fit.yaml"), "--ckpt_path", last)),
+        ("predict", cmd("predict", overlay("fit.yaml"), "--ckpt_path", last,
+                        "--track_dir", str(corpus / "val_song00"),
+                        "--ref", str(corpus / "val_song00" / "keys_st.wav"),
+                        "--output", str(tmp / "pred.wav"))),
+    ):
+        out, wall = _run_cli(root, argv, f"main_torch.py {name}")
+        runs[name] = n = _cli_numbers(out)
+        require(all(np.isfinite(x) for x in n["losses"]), f"{name}: every logged loss finite ({n['losses']})")
+        require(n["tf32"] == [("False", "False")], f"{name}: TF32 off ({n['tf32']})")
+        line(f"[cli] {name}: exit 0 in {wall:.1f} s; [train] steps/s {n['steps_per_sec']}"
+             f" (epochs {n['train_epochs']}, {n['epoch_seconds']} s); model built in {n['built']} s"
+             f" ({n['built_parts']});"
+             f" losses {n['losses']}; buffer reloads {n['reloads']}"
+             f" (subset, s, native); checkpoints saved {n['saved']} (bytes, s), restored {n['restored']} s;"
+             f" peak card memory {n['peak']} bytes")
 
-        fit, resume = runs["fit"], runs["resume"]
-        require(len(fit["steps_per_sec"]) == 3 and set(fit["train_epochs"]) == {0},
-                f"fit: 3 logged steps in epoch 0 ({fit})")
-        require(len(resume["steps_per_sec"]) == 3 and set(resume["train_epochs"]) == {1},
-                f"resume: 3 logged steps, starting at epoch 1 ({resume})")
-        meta = json.loads(pathlib.Path(last + ".meta.json").read_text())
-        require(meta["step"] == 6 and meta["next_epoch"] == 2, f"resume ends at step 6, next epoch 2 ({meta})")
-        require(len(resume["restored"]) == 1 and len(runs["validate"]["restored"]) == 1,
-                "resume and validate restore the checkpoint")
-        require(len(fit["saved"]) == 2 and len(resume["saved"]) == 2, "each fit saves last and best")
-        require(all(r[2] for n in runs.values() for r in n["reloads"]), "the native loader ran")
-        mix, _ = read_audio(str(tmp / "pred.wav"))
-        require(mix.shape[0] == 2 and mix.shape[1] > SR and np.isfinite(mix).all() and np.abs(mix).max() > 0,
-                f"predict wrote a finite stereo mix that is not all zeros ({mix.shape})")
+    fit, resume = runs["fit"], runs["resume"]
+    require(len(fit["steps_per_sec"]) == 3 and set(fit["train_epochs"]) == {0},
+            f"fit: 3 logged steps in epoch 0 ({fit})")
+    require(len(resume["steps_per_sec"]) == 3 and set(resume["train_epochs"]) == {1},
+            f"resume: 3 logged steps, starting at epoch 1 ({resume})")
+    meta = json.loads(pathlib.Path(last + ".meta.json").read_text())
+    require(meta["step"] == 6 and meta["next_epoch"] == 2, f"resume ends at step 6, next epoch 2 ({meta})")
+    require(len(resume["restored"]) == 1 and len(runs["validate"]["restored"]) == 1,
+            "resume and validate restore the checkpoint")
+    require(len(fit["saved"]) == 2 and len(resume["saved"]) == 2, "each fit saves last and best")
+    require(all(r[2] for n in runs.values() for r in n["reloads"]), "the native loader ran")
+    mix, _ = read_audio(str(tmp / "pred.wav"))
+    require(mix.shape[0] == 2 and mix.shape[1] > SR and np.isfinite(mix).all() and np.abs(mix).max() > 0,
+            f"predict wrote a finite stereo mix that is not all zeros ({mix.shape})")
 
-        # the fit's three steps in this process, the counts read around them;
-        # from the repository root, as the subprocesses run (the configs'
-        # relative paths, logs/metrics.csv)
-        import main_torch
+    # the fit's three steps in this process, the counts read around them;
+    # from the repository root, as the subprocesses run (the configs'
+    # relative paths, logs/metrics.csv)
+    import main_torch
 
-        torch.cuda.empty_cache()
-        inproc = overlay("in_process.yaml", {"num_sanity_val_steps": 0, "check_val_every_n_epoch": 1000,
-                                             "enable_checkpointing": False})
-        out = io.StringIO()
+    torch.cuda.empty_cache()
+    inproc = overlay("in_process.yaml", {"num_sanity_val_steps": 0, "check_val_every_n_epoch": 1000,
+                                         "enable_checkpointing": False})
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out), contextlib.chdir(root):
+        main_torch.main(cmd("fit", inproc)[1:])
+    counts = read_counts()
+    here = _cli_numbers(out.getvalue())
+    require(all(np.isfinite(x) for x in here["losses"]) and len(here["steps_per_sec"]) == 3,
+            f"in process: three steps, losses finite ({here})")
+    require(counts["K2"] == 12 and counts["K2-bwd"] == 6 and counts["K1"] == counts["K1-bwd"] == 0,
+            f"three CLI steps: 4 K2 forward and 2 K2 backward launches each, no K1 ({counts})")
+
+    def rate(n):
+        return n["steps_per_sec"][1:]  # step 1 carries the first reload and cuDNN's first calls
+
+    line(f"[cli] steps/s (steps 2-3 of each fit, TF32 off): fit {rate(fit)}, resume {rate(resume)},"
+         f" in this process {rate(here)}; the [training] phase {training_steps_per_s:.3f};"
+         f" train buffer reload"
+         f" {[r[1] for n in (fit, resume) for r in n['reloads'] if r[0] == 'train']} s; checkpoint"
+         f" {fit['saved'][0][0]} bytes, saves {[s for n in (fit, resume) for _, s in n['saved']]} s,"
+         f" restores {resume['restored'] + runs['validate']['restored'] + runs['predict']['restored']} s;"
+         f" peak card memory {max(p for n in runs.values() for p in n['peak']) / 2**30:.2f} GiB;"
+         f" native loader ran: True; launches a CLI step {({k: v / 3 for k, v in counts.items()})}")
+    return counts
+
+
+# ------------------------------------------------------------ feature loss
+
+FEATURE_WEIGHTS = [0.1, 0.001, 1.0, 1.0, 0.1]  # configs/models/naive+feat.yaml
+FEATURE_TERMS = ("mix-rms", "mix-crest_factor", "mix-stereo_width", "mix-stereo_imbalance", "mix-barkspectrum")
+# KE tracks: names of data/instrument_name2id.json, a stereo pair at 3-4
+KE_INSTRUMENTS = ("bass drum", "snare drum", "drum set", "acoustic guitar", "acoustic guitar", "electric bass",
+                  "piano", "vocalists")
+FIT_MIXES = 4  # synthetic stereo reference mixes of 12 s for the Method-2 fit
+
+
+def synth_ref_mixes(seed: int, n: int, length: int) -> np.ndarray:
+    """(n, 2, length) stereo reference mixes: an enveloped mid channel and a
+    quieter side channel of noise and tones, near -16 LUFS."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(length) / SR
+    out = np.empty((n, 2, length), np.float32)
+    for i in range(n):
+        env = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.2, 2.0) * t)
+        mid = env * (rng.standard_normal(length) + np.sin(2 * np.pi * rng.uniform(80.0, 800.0) * t))
+        side = 0.3 * rng.standard_normal(length)
+        out[i] = 0.08 * np.stack([mid + side, mid - side])
+    return out
+
+
+def _feature_steps(system, batch, flags, n, what, expect):
+    """n timed train steps; each must give a finite loss and finite named
+    terms and launch exactly ``expect`` (K2, K2-bwd) and no K1. Returns the
+    walls, the summed launches and the last step's metrics."""
+    walls, total = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(n):
         reset_counts()
-        with contextlib.redirect_stdout(out), contextlib.chdir(root):
-            main_torch.main(cmd("fit", inproc)[1:])
+        t0 = time.perf_counter()
+        m = system.train_step(batch, flags)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
         counts = read_counts()
-        here = _cli_numbers(out.getvalue())
-        require(all(np.isfinite(x) for x in here["losses"]) and len(here["steps_per_sec"]) == 3,
-                f"in process: three steps, losses finite ({here})")
-        require(counts["K2"] == 12 and counts["K2-bwd"] == 6 and counts["K1"] == counts["K1-bwd"] == 0,
-                f"three CLI steps: 4 K2 forward and 2 K2 backward launches each, no K1 ({counts})")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        terms = {k: float(v) for k, v in m.items() if k.startswith("mix-")}
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        line(f"[feature-loss] {what} step {step + 1}: {walls[-1]:.3f} s, loss {loss:.5g}, grad_norm {gn:.5g},"
+             f" terms {terms}, K2 {counts['K2']}, K2-bwd {counts['K2-bwd']}")
+        require(np.isfinite(loss) and np.isfinite(gn) and all(np.isfinite(v) for v in terms.values()),
+                f"{what} step {step + 1}: loss, grad_norm and terms finite")
+        require(int(m["pred_mix_nonfinite"]) == 0 and int(m["ref_mix_nonfinite"]) == 0,
+                f"{what} step {step + 1}: mixes finite")
+        require((counts["K2"], counts["K2-bwd"]) == expect and counts["K1"] == counts["K1-bwd"] == 0,
+                f"{what} step {step + 1}: {expect[0]} K2 and {expect[1]} K2-bwd launches, no K1 ({counts})")
+    peak = torch.cuda.max_memory_allocated()
+    rate = (len(walls) - 1) / sum(walls[1:])
+    line(f"[feature-loss] {what}: step{f's 2-{n}' if n > 2 else ' 2'} {rate:.3f} steps/s, step 1 {walls[0]:.3f} s;"
+         f" peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)")
+    return walls, total, m
 
-        def rate(n):
-            return n["steps_per_sec"][1:]  # step 1 carries the first reload and cuDNN's first calls
 
-        line(f"[cli] steps/s (steps 2-3 of each fit, TF32 off): fit {rate(fit)}, resume {rate(resume)},"
-             f" in this process {rate(here)}; the [training] phase {training_steps_per_s:.3f};"
-             f" train buffer reload"
-             f" {[r[1] for n in (fit, resume) for r in n['reloads'] if r[0] == 'train']} s; checkpoint"
-             f" {fit['saved'][0][0]} bytes, saves {[s for n in (fit, resume) for _, s in n['saved']]} s,"
-             f" restores {resume['restored'] + runs['validate']['restored'] + runs['predict']['restored']} s;"
-             f" peak card memory {max(p for n in runs.values() for p in n['peak']) / 2**30:.2f} GiB;"
-             f" native loader ran: True; launches a CLI step {({k: v / 3 for k, v in counts.items()})}")
-        return counts
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def _check_feature_loss_on_cpu(loss, pred, target):
+    """The card's AudioFeatureLoss terms and their gradient by ``pred`` (one
+    batch) against the same function on the CPU in float64: each term within
+    1e-4 of the loss, the gradient within 1e-3 of its max-abs."""
+    got, ref = {}, {}
+    for dev, dtype, out in (("cuda", torch.float32, got), ("cpu", torch.float64, ref)):
+        p = pred.detach().to(dev, dtype).requires_grad_()
+        terms = loss(p, target.detach().to(dev, dtype))
+        sum(terms.values()).backward()
+        out.update(terms={k: float(v.detach()) for k, v in terms.items()}, grad=p.grad.double().cpu())
+    total = sum(ref["terms"].values())
+    term_err = max(abs(got["terms"][k] - v) for k, v in ref["terms"].items()) / abs(total)
+    grad_err = float((got["grad"] - ref["grad"]).abs().max() / ref["grad"].abs().max())
+    line(f"[feature-loss] AudioFeatureLoss on the card (float32) vs the CPU (float64), {tuple(pred.shape)}:"
+         f" terms {term_err:.3g} of the loss {total:.6g}, gradient {grad_err:.3g} of its max-abs")
+    require(list(got["terms"]) == list(FEATURE_TERMS), f"the loss's terms {list(got['terms'])}")
+    require(term_err <= 1e-4, f"card and CPU feature-loss terms agree ({term_err})")
+    require(grad_err <= 1e-3, f"card and CPU feature-loss gradients agree ({grad_err})")
+
+
+def _fx_request(model, render_mode, seed):
+    """One 60 s, 8-track request with the fx bus ("ola": the default
+    console, K2; "streaming": the causal one, K3, K1, K5), its wall, and its
+    distance from one render of the whole song with the same parameters and
+    the request's first reverb row, past the first block, of the peak: a
+    record, with no bound (the JAX package sets none)."""
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.ops.reverb import draw_reverb_noise, reverb_noise_shape
+    from diffmst_torch.utils import inference
+
+    console = AdvancedMixConsole(SR, **(CAUSAL if render_mode == "streaming" else {}))
+    tracks, ref = synth_song(seed, N_TRACKS, SONG_S, quiet_track=N_TRACKS - 1)
+    noise = draw_reverb_noise(torch.Generator().manual_seed(0),
+                              reverb_noise_shape(inference._RENDER_BS, 2, console.reverb_num_samples,
+                                                 console.reverb_num_taps), torch.device("cuda"))
+    seen = {}
+
+    def apply(t, r):
+        seen["params"] = model(t, r)
+        return seen["params"]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mix, td, _, _ = inference.run_diffmst(tracks, ref, apply, console, use_fx_bus=True,
+                                          render_mode=render_mode, noise=noise)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    one = whole_song_render(console, tracks, seen["params"], use_fx_bus=True, noise=noise[:1])
+    dry, *_ = inference.run_diffmst(tracks, ref, model, console, render_mode=render_mode)
+    block = WINDOW // 2
+    seam = float(np.abs(mix - one)[..., block:].max()) / float(np.abs(one).max())
+    wet = float(np.abs(mix - dry).max()) / float(np.abs(dry).max())
+    line(f"[feature-loss] fx-bus request ({render_mode}): {wall:.3f} s, {SONG_S / wall:.1f}x realtime;"
+         f" against one render of the whole song (reverb row 0), past the first block:"
+         f" {seam:.3g} of the peak (no bound); the fx bus moved the mix by {wet:.3g} of the dry peak;"
+         f" launches {counts}")
+    require(mix.shape == (1, 2, int(SONG_S * SR)) and np.isfinite(mix).all(), f"{render_mode} fx mix finite")
+    require(wet > 1e-3, f"the fx bus is heard in the {render_mode} request ({wet})")
+    require(td["compressor"]["ratio"].shape == (1, N_TRACKS - 1), "the quiet track was gated")
+    return counts
+
+
+def phase_feature_loss(root: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """The audio-feature loss, Method 2, KE mixes and the fx bus at full width
+    (``naive.yaml``'s model, 4 x 8 x 262,144, TF32 off): (a) three Method-1
+    steps with ``AudioFeatureLoss``, whose terms and gradient on one batch
+    are held against the CPU; (b) three Method-2 steps on stereo reference
+    mixes; (c) two KE steps with the fx bus on (reverb 65,536 samples, 1,023
+    taps), KE's host milliseconds; (d) ``main_torch.py fit`` of 3 steps on
+    ``naive.yaml`` + ``unpaired+feat.yaml`` over [cli]'s corpus under ``tmp``
+    and synthetic mixes, a subprocess; (e) one 60 s, 8-track request with the
+    fx bus, "ola", and one "streaming" with the causal console. Returns the
+    phase's kernel launches."""
+    import json as _json
+
+    import yaml
+
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.data import write_audio
+    from diffmst_torch.losses import AudioFeatureLoss, MultiResolutionSTFTLoss
+    from diffmst_torch.mixing import knowledge_engineering_mix
+    from diffmst_torch.models import MixStyleTransferModel
+    from diffmst_torch.train import System, SystemConfig
+
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    model = MixStyleTransferModel.build(generator=torch.Generator().manual_seed(0))
+    console = AdvancedMixConsole(SR, **CONSOLE_RANGES)  # auto = K2; the reverb at 65,536 and 1,023
+    loss = AudioFeatureLoss(sample_rate=44100, weights=FEATURE_WEIGHTS)
+    batch = synth_batch(11)
+    batch = batch._replace(tracks=batch.tracks.cuda(), track_padding=batch.track_padding.cuda())
+    line(f"[feature-loss] model {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, batch"
+         f" {TRAIN_BS} x {TRAIN_TRACKS} x {WINDOW}; loss {loss}")
+
+    # (a) Method 1 with the feature loss
+    system = System(model, console, loss, SystemConfig(), generator=torch.Generator().manual_seed(1))
+    flags = system.effect_flags(0)
+    _, counts, _ = _feature_steps(system, batch, flags, TRAIN_STEPS, "Method 1 + AudioFeatureLoss", (4, 2))
+    add(counts)
+    _, out = system.eval_step(batch, flags)
+    _check_feature_loss_on_cpu(loss, out["pred_mix_b"], out["ref_mix_b"])
+    del out
+
+    # (b) Method 2: the batch's real (here synthetic) stereo reference mixes
+    system = System(model, console, loss, SystemConfig(generate_mix=False),
+                    generator=torch.Generator().manual_seed(2))
+    m2_batch = batch._replace(ref_mix=torch.from_numpy(synth_ref_mixes(12, TRAIN_BS, WINDOW)).cuda())
+    _, counts, _ = _feature_steps(system, m2_batch, system.effect_flags(0), TRAIN_STEPS, "Method 2", (2, 2))
+    add(counts)
+    del m2_batch
+
+    # (c) KE mixes with the fx bus; the instrument ids stay on the host
+    name2id = _json.loads((root / "data" / "instrument_name2id.json").read_text())
+    ids = torch.tensor([[name2id[n] for n in KE_INSTRUMENTS]] * TRAIN_BS, dtype=torch.int32)
+    stereo = torch.zeros(TRAIN_BS, TRAIN_TRACKS, dtype=torch.int32)
+    stereo[:, 3] = 1
+    system = System(model, console, MultiResolutionSTFTLoss(**MRSTFT), SystemConfig(active_fx_bus_epoch=0),
+                    mix_fn=knowledge_engineering_mix, generator=torch.Generator().manual_seed(3))
+    flags = system.effect_flags(0)
+    require(flags.use_fx_bus, "KE steps with the fx bus")
+    ke_ms = []
+    sample = system._host_sample_ke
+
+    def timed_sample(b):
+        t0 = time.perf_counter()
+        out = sample(b)
+        ke_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    system._host_sample_ke = timed_sample
+    _, counts, _ = _feature_steps(system, batch._replace(instrument_id=ids, stereo_info=stereo), flags, 2,
+                                  "KE + fx bus", (4, 2))
+    add(counts)
+    line(f"[feature-loss] KE: host sampling {', '.join(f'{t:.2f}' for t in ke_ms)} ms a step"
+         f" ({TRAIN_BS} x {TRAIN_TRACKS} tracks, data/knowledge_engineering.yaml)")
+    require(len(ke_ms) == 2, "KE sampled on the host once a step")
+
+    # (e) the fx bus in serving
+    model.eval()
+    add(_fx_request(model, "ola", 4))
+    add(_fx_request(model, "streaming", 4))
+    del system, model, batch
+    torch.cuda.empty_cache()
+
+    # (d) main_torch.py fit, Method 2 with the feature loss, as a user runs it
+    mixes = tmp / "mixes"
+    for i, mix in enumerate(synth_ref_mixes(13, FIT_MIXES, int(CLI_SONGS[2] * SR))):
+        write_audio(str(mixes / f"mix{i}.wav"), mix, int(SR))
+    overlay = tmp / "method2.yaml"
+    overlay.write_text(yaml.safe_dump({
+        "trainer": {"max_epochs": 1, "log_every_n_steps": 1, "num_sanity_val_steps": 0,
+                    "check_val_every_n_epoch": 1000, "enable_checkpointing": False,
+                    "default_root_dir": str(tmp / "ckpts_method2")},
+        "data": {"init_args": {"track_root_dirs": [str(tmp / "corpus")],
+                               "metadata_files": [str(tmp / "corpus" / "meta.yaml")],
+                               "mix_root_dirs": [str(mixes)],
+                               "num_examples_per_pass": 12, "num_train_passes": 1}},
+    }))
+    configs = [*(str(root / c) for c in CLI_CONFIGS), str(root / "configs/models/unpaired+feat.yaml"), str(overlay)]
+    out, wall = _run_cli(root, ["main_torch.py", "fit", *(a for c in configs for a in ("-c", c))],
+                         "main_torch.py fit (naive.yaml + unpaired+feat.yaml)")
+    n = _cli_numbers(out)
+    train_lines = [ln for ln in out.splitlines() if ln.startswith("[train]")]
+    line(f"[feature-loss] main_torch.py fit on naive.yaml + unpaired+feat.yaml: exit 0 in {wall:.1f} s;"
+         f" [train] steps/s {n['steps_per_sec']}; losses {n['losses']}; model built in {n['built']} s;"
+         f" buffer reloads {n['reloads']}; peak card memory {n['peak']} bytes")
+    require(len(n["steps_per_sec"]) == 3, f"fit: 3 logged steps ({n['steps_per_sec']})")
+    require(all(np.isfinite(x) for x in n["losses"]), f"fit: every logged loss finite ({n['losses']})")
+    require(all(all(f"{t}=" in ln for t in FEATURE_TERMS) for ln in train_lines),
+            "fit: the feature loss's terms logged each step")
+    require(n["tf32"] == [("False", "False")], f"fit: TF32 off ({n['tf32']})")
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, k, **extra):
@@ -1464,7 +1713,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     causal = phase_training_causal()
     torch.cuda.empty_cache()
-    cli = phase_cli(root, train_rate)
+    (root / "build").mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="cli_", dir=root / "build"))
+    try:
+        cli = phase_cli(root, tmp, train_rate)
+        torch.cuda.empty_cache()
+        feature = phase_feature_loss(root, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     scan_cu, comp_cu, iir_cu = ("diffmst_torch/kernels/csrc/scan1p.cu",
                                 "diffmst_torch/kernels/csrc/comp_fused.cu",
@@ -1477,10 +1733,13 @@ def main() -> int:
     def entry(key, name, source, replaces, **extra):
         """Launches: the serving requests (K2's three, K1's "scan" render,
         the three streaming ones), the training steps (four, then two
-        causal ones) and the CLI's step."""
-        return kernel_entry(name, source, replaces, serving[key] + training[key] + cli[key], stats[name],
+        causal ones), the CLI's steps, and [feature-loss]'s steps and fx-bus
+        requests."""
+        total = serving[key] + training[key] + cli[key] + feature.get(key, 0)
+        return kernel_entry(name, source, replaces, total, stats[name],
                             launches_serving=serving[key], launches_training=training[key],
-                            launches_cli=cli[key], on_path=True, **extra)
+                            launches_cli=cli[key], launches_feature_loss=feature.get(key, 0), on_path=True,
+                            **extra)
 
     kernels = [
         entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),

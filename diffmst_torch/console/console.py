@@ -94,12 +94,13 @@ class BasicMixConsole:
 @dataclasses.dataclass(frozen=True)
 class AdvancedMixConsole:
     """Full console: per-track [input fader -> 6-band EQ -> compressor
-    (lookahead 2048)] -> pan -> stereo sum -> master [input fader -> EQ ->
+    (lookahead 2048)] -> pan -> stereo sum; the fx bus [per-track sends ->
+    12-band noise reverb] added to it; master [input fader -> EQ ->
     compressor (lookahead 1024)] -> output fader.
 
-    The fx bus (per-track sends into a noise reverb) is not ported yet
-    (ROADMAP Queue 1, item 9): ``use_fx_bus=True`` raises, and it defaults to
-    False here, as every shipped configuration and ``run_diffmst`` use it.
+    The reverb's noise is explicit: a render with the fx bus takes it as
+    ``noise`` or draws it from ``generator`` (``ops/reverb.py``), where
+    JAX's console takes a ``key``.
     """
 
     sample_rate: float = 44100.0
@@ -120,6 +121,8 @@ class AdvancedMixConsole:
 
     track_comp_lookahead: int = 2048
     master_comp_lookahead: int = 1024
+    reverb_num_samples: int = 65536
+    reverb_num_taps: int = 1023
     # Compressor smoother (ops/compressor.py): "auto" (= "fused", kernel K2),
     # "scan" (kernel K1), "fsm" (the reference's circular FFT smoother), or
     # "decoupled" (attack and release: K3, then K1). The JAX console's
@@ -220,15 +223,15 @@ class AdvancedMixConsole:
         use_track_eq: bool = True,
         use_track_compressor: bool = True,
         use_track_panner: bool = True,
-        use_fx_bus: bool = False,
+        use_fx_bus: bool = True,
         use_master_bus: bool = True,
         use_output_fader: bool = True,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
     ):
-        """Render denormalized parameter dicts -> (stems, master)."""
-        if use_fx_bus:
-            raise NotImplementedError(
-                "the fx bus (noise-shaped reverb) is not ported yet: ROADMAP Queue 1, item 9"
-            )
+        """Render denormalized parameter dicts -> (stems, master). With the
+        fx bus, ``noise`` or ``generator`` feeds the reverb
+        (``ops.noise_shaped_reverberation``)."""
         sr = self.sample_rate
         x = self._track_chain(
             tracks,
@@ -242,6 +245,18 @@ class AdvancedMixConsole:
         else:
             stems = ops.mono_to_stereo(x)
         master = stems.sum(dim=2)  # (bs, 2, seq_len)
+
+        if use_fx_bus:
+            fx = ops.stereo_bus(stems, sr, track_param_dict["fx_bus"]["send_db"])
+            fx = ops.noise_shaped_reverberation(
+                fx, sr,
+                **fx_bus_param_dict["reverberation"],
+                num_samples=self.reverb_num_samples,
+                num_bandpass_taps=self.reverb_num_taps,
+                noise=noise,
+                generator=generator,
+            )
+            master = master + fx
 
         if use_master_bus:
             # The input fader folds into the EQ (its sampled response under
@@ -279,9 +294,11 @@ class AdvancedMixConsole:
         use_track_eq: bool = True,
         use_track_compressor: bool = True,
         use_track_panner: bool = True,
-        use_fx_bus: bool = False,
+        use_fx_bus: bool = True,
         use_master_bus: bool = True,
         use_output_fader: bool = True,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
     ) -> ConsoleOutput:
         """Render a mix from normalized (0, 1) parameter vectors.
 
@@ -291,6 +308,11 @@ class AdvancedMixConsole:
           fx_bus_params: (bs, 25).
           master_bus_params: (bs, 26).
           use_*: effect toggles (curriculum stages).
+          generator, noise: the reverb's noise with the fx bus: the
+            (bs, 2, 12, reverb_num_samples + reverb_num_taps - 1) tensor,
+            or the generator it is drawn from (``ops.reverb.
+            draw_reverb_noise``); with neither, a generator seeded 0, as
+            JAX's default key.
         """
         dev = resolve_device(self.device)
         tracks = _on(dev, tracks)
@@ -309,5 +331,7 @@ class AdvancedMixConsole:
             use_fx_bus=use_fx_bus,
             use_master_bus=use_master_bus,
             use_output_fader=use_output_fader,
+            generator=generator,
+            noise=noise,
         )
         return ConsoleOutput(stems, mix, track_d, fx_d, master_d)

@@ -16,6 +16,7 @@ __all__ = [
     "advanced_param_ranges",
     "basic_param_ranges",
     "denormalize",
+    "normalize",
     "denormalize_parameters",
     "split_track_params",
     "split_fx_bus_params",
@@ -115,6 +116,11 @@ def basic_param_ranges(
 def denormalize(norm_val, max_val, min_val):
     """(0,1) -> [min_val, max_val]. Argument order mirrors the reference."""
     return norm_val * (max_val - min_val) + min_val
+
+
+def normalize(val, min_val, max_val):
+    """[min_val, max_val] -> (0,1), the inverse of ``denormalize``."""
+    return (val - min_val) / (max_val - min_val)
 
 
 def denormalize_parameters(

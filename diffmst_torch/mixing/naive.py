@@ -53,18 +53,18 @@ def naive_random_mix(
     use_track_eq: bool = True,
     use_track_compressor: bool = True,
     use_track_panner: bool = True,
-    use_fx_bus: bool = False,
+    use_fx_bus: bool = True,
     use_master_bus: bool = True,
     use_output_fader: bool = True,
     params=None,
+    noise=None,
 ) -> NaiveRandomMix:
     """Render a reference mix of (bs, num_tracks, seq_len) stems with
     uniformly random console parameters drawn from ``generator``, or with
     the given normalized ``params`` (track, fx bus, master bus).
 
-    The fx bus is not ported (ROADMAP Queue 1, item 9), so ``use_fx_bus``
-    defaults to False here; the JAX function defaults it to True and every
-    shipped configuration turns it off.
+    With the fx bus, the reverb takes ``noise`` or draws it from
+    ``generator`` after the parameters (``ops.reverb.draw_reverb_noise``).
     """
     if params is None:
         params = draw_mix_params(tracks, mix_console, generator)
@@ -81,5 +81,7 @@ def naive_random_mix(
         use_fx_bus=use_fx_bus,
         use_master_bus=use_master_bus,
         use_output_fader=use_output_fader,
+        generator=generator,
+        noise=noise,
     )
     return NaiveRandomMix(*out, track_params, fx_bus_params, master_bus_params)

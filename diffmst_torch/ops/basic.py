@@ -1,4 +1,5 @@
-"""Elementwise console primitives: gain, constant-power panner, mono to stereo.
+"""Elementwise console primitives: gain, constant-power panner, mono to
+stereo, and the fx bus's send sum.
 
 Port of ``diffmst_tpu/ops/basic.py``. Parameters are per batch item and
 broadcast over channels and time.
@@ -10,7 +11,7 @@ import math
 
 import torch
 
-__all__ = ["db_to_linear", "gain", "stereo_panner", "mono_to_stereo"]
+__all__ = ["db_to_linear", "gain", "stereo_panner", "mono_to_stereo", "stereo_bus"]
 
 
 def db_to_linear(gain_db: torch.Tensor) -> torch.Tensor:
@@ -54,3 +55,18 @@ def stereo_panner(x: torch.Tensor, sample_rate: float, pan: torch.Tensor) -> tor
 def mono_to_stereo(x: torch.Tensor) -> torch.Tensor:
     """(batch, num_tracks, time) -> (batch, 2, num_tracks, time), duplicated."""
     return x[:, None, :, :].expand(x.shape[0], 2, *x.shape[1:])
+
+
+def stereo_bus(x: torch.Tensor, sample_rate: float, send_db: torch.Tensor) -> torch.Tensor:
+    """Sum panned tracks into a stereo bus, each at its send level.
+
+    Args:
+      x: (batch, 2, num_tracks, time) panned tracks.
+      sample_rate: unused (uniform signature).
+      send_db: (batch, num_tracks) send levels in dB.
+
+    Returns:
+      (batch, 2, time) stereo bus.
+    """
+    del sample_rate
+    return torch.einsum("bcnt,bn->bct", x, db_to_linear(send_db))

@@ -11,36 +11,61 @@ Port of ``diffmst_tpu/train/system.py``. One step, as ``System._common``
   -> clip the gradients at global norm 10 -> Adam.
 
 Method 2 (``generate_mix=False``) feeds the batch's real reference mix to
-both the model and the loss.
+both the model and the loss. The loss is a scalar (MRSTFT) or a dict of
+named terms (``AudioFeatureLoss``), which the step sums.
+
+A host-side ``mix_fn`` (``knowledge_engineering_mix``, whose ``host_side``
+flag is set) has its parameters sampled on the host each step
+(``_host_sample_ke``, from the batch's instrument ids and stereo flags as
+they came from the host) and rendered on the device without gradients,
+as JAX's System does.
 
 JAX's jitted pure step becomes a stateful object: the model holds the
 parameters and the BatchNorm statistics, the ``torch.optim.Adam`` its
 moments, and ``train_step`` updates them in place. Randomness comes from an
-explicit ``torch.Generator``; a caller can instead pass the reference-mix
-parameters (``ref_params``), as JAX's System takes ``ke_params``, which is
-how the tests feed the port the JAX draw.
+explicit ``torch.Generator`` (``self.generator``), drawn in this order in a
+step: the reference mix's parameters (naive: three uniform draws; KE: one
+31-bit seed for NumPy), the reference render's reverb noise, the predicted
+render's reverb noise (each noise only with the fx bus on; one 63-bit seed
+each, ``ops.reverb.draw_reverb_noise``). A caller can instead pass the
+reference-mix parameters (``ref_params``), as JAX's System takes
+``ke_params``, and the two renders' reverb noise (``reverb_noise``), which
+is how the tests feed the port JAX's draws.
 
-Not ported: the mesh, the host-side knowledge-engineering mix_fn, and the
-TPU-era optimizer knobs ``adam_mu_dtype`` and ``flatten_optimizer``, which
-raise (ROADMAP Queue 1, items 5 and 10; the mesh is item 12).
+Not ported: the mesh, and the TPU-era optimizer knobs ``adam_mu_dtype`` and
+``flatten_optimizer``, which raise (ROADMAP Queue 1, item 5; the mesh is
+item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import yaml
 from torch.profiler import record_function
 
 from diffmst_torch.mixing import naive_random_mix
+from diffmst_torch.mixing.knowledge import REPO_ROOT, instrument_metadata, sample_ke_params
 from diffmst_torch.utils.audio import batch_stereo_peak_normalize
 from diffmst_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = ["SystemConfig", "EffectFlags", "Batch", "System", "lr_schedule"]
 
 _ADAM_EPS = 1e-8  # optax.adam's and torch.optim.Adam's default
+
+
+def _repo_path(path: str) -> str:
+    """A relative default path (``data/...``) against the repository root
+    when it does not exist from the working directory."""
+    if os.path.isabs(path) or os.path.exists(path):
+        return path
+    return os.path.join(REPO_ROOT, path)
 
 
 class Batch(NamedTuple):
@@ -128,7 +153,11 @@ class System:
         (``generate_mix``, ``active_eq_epoch``, ``lr``, ``max_epochs``,
         ``steps_per_epoch``, ...) and override those fields of ``config``, so
         that the shipped YAML configs build this class; unknown keys are
-        ignored, as in the JAX System (diffmst_tpu/train/system.py:141-170)."""
+        ignored, as in the JAX System (diffmst_tpu/train/system.py:141-170).
+        With a host-side ``mix_fn`` (KE) it loads the instrument lookup
+        (``instrument_id_json``, default ``data/instrument_name2id.json``)
+        and the KE ranges (``knowledge_engineering_yaml``, default
+        ``data/knowledge_engineering.yaml``)."""
         base = dataclasses.asdict(config) if config is not None else {}
         names = {f.name for f in dataclasses.fields(SystemConfig)}
         base.update({k: v for k, v in kwargs.items() if k in names})
@@ -146,6 +175,14 @@ class System:
         self.device = device
         self._make_optimizer()
         self.step = 0  # train steps taken, as JAX's TrainState.step
+        self.instrument_number_lookup = None
+        self.knowledge_engineering_dict = None
+        if getattr(mix_fn, "host_side", False):
+            with open(_repo_path(kwargs.get("instrument_id_json", "data/instrument_name2id.json"))) as f:
+                self.instrument_number_lookup = json.load(f)
+            with open(_repo_path(kwargs.get("knowledge_engineering_yaml",
+                                            "data/knowledge_engineering.yaml"))) as f:
+                self.knowledge_engineering_dict = yaml.safe_load(f)
 
     # ------------------------------------------------------------ optimizer
     def _make_optimizer(self) -> None:
@@ -204,25 +241,54 @@ class System:
         )
 
     # ---------------------------------------------------------- the step
+    def _host_sample_ke(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """KE reference-mix parameters for one step, sampled on the host.
+
+        The instrument ids and stereo flags are read where the batch holds
+        them: the Trainer keeps them on the host, so no step waits on a copy
+        back from the card. The NumPy generator is seeded by one 31-bit draw
+        from ``self.generator``: the same generator state repeats the draw
+        (deterministic validation), a new one gives a new mix."""
+        iid = batch.instrument_id.cpu().numpy()
+        if self.instrument_number_lookup:
+            mdata = instrument_metadata(iid, self.instrument_number_lookup)
+        else:
+            mdata = [["unknown"] * iid.shape[1] for _ in range(iid.shape[0])]
+        seed = int(torch.randint(0, 2**31 - 1, (), generator=self.generator, device=self.generator.device))
+        arrays = sample_ke_params(self.knowledge_engineering_dict or {}, mdata,
+                                  batch.stereo_info.cpu().numpy(), np.random.default_rng(seed),
+                                  self.mix_console)
+        return tuple(torch.from_numpy(a) for a in arrays)
+
     def forward(
         self,
         batch: Batch,
         flags: EffectFlags,
         train: bool,
         ref_params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+        reverb_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
         """The step's forward (JAX ``System._common``): (loss, metrics,
-        outputs). Its stages run under ``torch.profiler`` ranges named
-        ``system.ref_mix``, ``system.model``, ``system.render`` and
-        ``system.loss``."""
+        outputs). ``reverb_noise`` (the reference render's, the predicted
+        render's) replaces the two reverb draws when the fx bus is on. Its
+        stages run under ``torch.profiler`` ranges named ``system.ref_mix``
+        (with ``system.ke_sample`` for a host-side mix_fn), ``system.model``,
+        ``system.render`` and ``system.loss``."""
         cfg = self.config
         dev = resolve_device(self.device)
-        batch = Batch(*(t.to(dev) for t in batch))
+        # the instrument ids and stereo flags stay where they are: only the
+        # host-side KE sampler reads them
+        batch = batch._replace(tracks=batch.tracks.to(dev), track_padding=batch.track_padding.to(dev),
+                               ref_mix=batch.ref_mix.to(dev))
         tracks = batch.tracks
         middle = tracks.shape[-1] // 2
+        ref_noise, render_noise = reverb_noise if reverb_noise is not None else (None, None)
 
         ref_param_arrays = None
         if cfg.generate_mix:
+            if ref_params is None and getattr(self.mix_fn, "host_side", False):
+                with record_function("system.ke_sample"):
+                    ref_params = self._host_sample_ke(batch)
             with record_function("system.ref_mix"):
                 ref = self.mix_fn(
                     tracks,
@@ -235,6 +301,7 @@ class System:
                     use_master_bus=flags.use_master_bus,
                     use_output_fader=False,  # reference system.py:241
                     params=ref_params,
+                    noise=ref_noise,
                 )
                 ref_mix = batch_stereo_peak_normalize(ref.mix)
             ref_mix_a = ref_mix[..., :middle]
@@ -261,6 +328,8 @@ class System:
                 use_fx_bus=flags.use_fx_bus,
                 use_master_bus=flags.use_master_bus,
                 use_output_fader=True,
+                generator=self.generator,
+                noise=render_noise,
             )
         pred_mix_b = render.mix
         with record_function("system.loss"):
@@ -310,6 +379,7 @@ class System:
         batch: Batch,
         flags: EffectFlags,
         ref_params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+        reverb_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         """The first half of a train step: the forward in training mode (it
         updates the BatchNorm running statistics) and the backward, which
@@ -318,7 +388,7 @@ class System:
         metrics with ``grad_norm``, the gradients' global norm."""
         for p in self.params:
             p.grad = None
-        loss, metrics, _ = self.forward(batch, flags, True, ref_params)
+        loss, metrics, _ = self.forward(batch, flags, True, ref_params, reverb_noise)
         metrics["grad_norm"] = self.backward(loss)
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -376,13 +446,15 @@ class System:
         batch: Batch,
         flags: EffectFlags,
         ref_params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+        reverb_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         """One train step in place (JAX ``make_train_step``, system.py:541):
         parameters, BatchNorm statistics and optimizer state move on.
         ``ref_params`` (track, fx bus, master bus), normalized, replace the
-        reference mix's random draw. Returns the metrics: loss, the two
+        reference mix's random draw, and ``reverb_noise`` the reverb's.
+        Returns the metrics: loss (and a dict loss's named terms), the two
         non-finite counts, grad_norm (and notfinite_count when skipping)."""
-        metrics = self.gradients(batch, flags, ref_params)
+        metrics = self.gradients(batch, flags, ref_params, reverb_noise)
         metrics.update(self.apply_gradients(metrics["grad_norm"]))
         self.step += 1
         return metrics
@@ -393,12 +465,13 @@ class System:
         batch: Batch,
         flags: EffectFlags,
         ref_params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+        reverb_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
         """One evaluation step (JAX ``make_eval_step``, system.py:602):
         BatchNorm on its running statistics, nothing updated. Returns
         (metrics, outputs) with the predicted and reference mixes and the
         normalized predicted parameters."""
-        _, metrics, outputs = self.forward(batch, flags, False, ref_params)
+        _, metrics, outputs = self.forward(batch, flags, False, ref_params, reverb_noise)
         return metrics, outputs
 
 

@@ -63,12 +63,13 @@ _SAMPLE_RATE = 44100.0
 
 def _to_batch(raw, device: torch.device) -> Batch:
     """A collated host batch (tracks, stereo, instr, padding, mix, names) as a
-    ``Batch`` on ``device``."""
+    ``Batch`` on ``device``, but for the instrument ids and stereo flags,
+    which stay on the host: only the host-side KE sampler reads them."""
     tracks, stereo, instr, padding, mix, _names = raw
     return Batch(
         tracks=torch.as_tensor(tracks).to(device),
-        instrument_id=torch.as_tensor(instr).to(device),
-        stereo_info=torch.as_tensor(stereo).to(device),
+        instrument_id=torch.as_tensor(instr),
+        stereo_info=torch.as_tensor(stereo),
         track_padding=torch.as_tensor(padding).to(device),
         ref_mix=torch.as_tensor(mix).to(device),
     )

@@ -3,7 +3,8 @@
 Port of ``diffmst_tpu/utils/config.py``. ``instantiate`` builds objects from
 ``{class_path: pkg.Cls, init_args: {...}}`` nodes, nested nodes first;
 ``load_config`` overlays ``-c`` files left to right, later files
-deep-merging over earlier ones. Class paths of the reference (``mst.*``,
+deep-merging over earlier ones (a node whose class the later file changes
+is replaced, not merged: ``deep_merge``). Class paths of the reference (``mst.*``,
 ``auraloss.freq.MultiResolutionSTFTLoss``) and of the JAX package
 (``diffmst_tpu.*``) resolve to the port, so ``configs/**/*.yaml`` load
 unchanged. A class the port does not have yet raises ``NotPortedError``,
@@ -52,8 +53,6 @@ _NOT_PORTED: Dict[str, str] = {
     "ParameterEstimationSystem": "11",
     "MixDataModule": "11",
     "MixDataset": "11",
-    "AudioFeatureLoss": "10",
-    "knowledge_engineering_mix": "10",
     "LogAudioCallback": "12",
     "LogReferenceMix": "12",
     "WandbLogger": "12",
@@ -127,11 +126,26 @@ def instantiate(node: Any, **overrides: Any) -> Any:
     return node
 
 
+def _switches_class(base: Dict, over: Dict) -> bool:
+    """Both nodes name a class, and not the same one (after aliasing)."""
+    return ("class_path" in base and "class_path" in over
+            and _port_path(base["class_path"]) != _port_path(over["class_path"]))
+
+
 def deep_merge(base: Dict, over: Dict) -> Dict:
+    """``over`` merged into ``base``, dicts recursively.
+
+    A node whose ``class_path`` the overlay changes takes the overlay's
+    node whole: the base's ``init_args`` belonged to the other class, and
+    LightningCLI (jsonargparse) likewise drops them on a class change. The
+    JAX package's merge keeps them (ROADMAP Queue 3), so ``naive.yaml`` +
+    ``naive+feat.yaml`` would hand MRSTFT's FFT sizes to AudioFeatureLoss.
+    """
     out = dict(base)
     for k, v in over.items():
-        if isinstance(v, dict) and isinstance(out.get(k), dict):
-            out[k] = deep_merge(out[k], v)
+        old = out.get(k)
+        if isinstance(v, dict) and isinstance(old, dict) and not _switches_class(old, v):
+            out[k] = deep_merge(old, v)
         else:
             out[k] = v
     return out

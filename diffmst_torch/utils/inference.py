@@ -17,7 +17,11 @@ Port of ``diffmst_tpu/utils/inference.py``. ``run_diffmst``:
          causal console (``comp_smoother="decoupled"``,
          ``eq_method="scan"``) the blocks join without seams.
 The song goes to the device once and the mix comes back once, or stays on
-the device (``return_device``).
+the device (``return_device``). With the fx bus, one reverb noise draw
+serves the whole request: every console call takes the same
+(``_RENDER_BS``, 2, 12, reverb samples + taps - 1) noise, as every call of
+JAX's render takes the request's one key, so window (or block) i convolves
+with the impulse response of row i % ``_RENDER_BS``.
 
 ``overlap_add_render`` and ``overlap_save_render`` are the same two renders
 assembled on the host around a render callable.
@@ -25,13 +29,14 @@ assembled on the host around a render callable.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from diffmst_torch.ops.loudness import integrated_loudness
+from diffmst_torch.ops.reverb import draw_reverb_noise, reverb_noise_shape
 from diffmst_torch.ops.stft import hann_window
 from diffmst_torch.utils.device import DeviceLike, resolve_device
 
@@ -166,7 +171,7 @@ def _pcm16_trim(mix: torch.Tensor, total: int) -> torch.Tensor:
 
 def _device_ola(
     mix_console,
-    use_fx_bus: bool,
+    noise: Optional[torch.Tensor],
     tracks_padded: torch.Tensor,
     gains: torch.Tensor,
     tp: torch.Tensor,
@@ -177,7 +182,8 @@ def _device_ola(
     group_bs: int,
 ) -> torch.Tensor:
     """Hann-OLA render of (num_tracks, (n_windows + 1) * hop) raw stems with
-    per-track gains (0 for gated tracks) -> (2, (n_windows + 1) * hop)."""
+    per-track gains (0 for gated tracks) -> (2, (n_windows + 1) * hop);
+    ``noise``: the request's reverb noise, or None without the fx bus."""
     hop = window_len // 2
     seg_len = (group_bs - 1) * hop + window_len
     tpg = tp.expand(group_bs, -1, -1)
@@ -187,7 +193,7 @@ def _device_ola(
     for i in range(0, n_windows, group_bs):
         seg = tracks_padded[:, i * hop : i * hop + seg_len] * gains[:, None]
         wins = seg.unfold(-1, window_len, hop).transpose(0, 1)  # (group_bs, tracks, L)
-        rendered[i : i + group_bs] = mix_console(wins, tpg, fpg, mpg, use_fx_bus=use_fx_bus).mix
+        rendered[i : i + group_bs] = mix_console(wins, tpg, fpg, mpg, use_fx_bus=noise is not None, noise=noise).mix
 
     win = torch.from_numpy(hann_window(window_len).copy()).to(rendered.device)
     weights = win.expand(n_windows, window_len).clone()
@@ -202,7 +208,7 @@ def _device_ola(
 
 def _device_overlap_save(
     mix_console,
-    use_fx_bus: bool,
+    noise: Optional[torch.Tensor],
     tracks_padded: torch.Tensor,
     gains: torch.Tensor,
     tp: torch.Tensor,
@@ -217,7 +223,8 @@ def _device_overlap_save(
     raw stems, the song starting after ``context_len`` zeros, with per-track
     gains (0 for gated tracks) -> (2, n_blocks * block_len). Block i renders
     the window [i * block_len, i * block_len + context_len + block_len) and
-    keeps its last ``block_len`` samples."""
+    keeps its last ``block_len`` samples; ``noise``: the request's reverb
+    noise, or None without the fx bus."""
     win_len = context_len + block_len
     seg_len = (group_bs - 1) * block_len + win_len
     tpg = tp.expand(group_bs, -1, -1)
@@ -227,7 +234,7 @@ def _device_overlap_save(
     for i in range(0, n_blocks, group_bs):
         seg = tracks_padded[:, i * block_len : i * block_len + seg_len] * gains[:, None]
         wins = seg.unfold(-1, win_len, block_len).transpose(0, 1)  # (group_bs, tracks, win_len)
-        mix = mix_console(wins, tpg, fpg, mpg, use_fx_bus=use_fx_bus).mix
+        mix = mix_console(wins, tpg, fpg, mpg, use_fx_bus=noise is not None, noise=noise).mix
         rendered[i : i + group_bs] = mix[:, :, context_len:]
     return rendered.transpose(0, 1).reshape(2, n_blocks * block_len)
 
@@ -247,6 +254,8 @@ def run_diffmst(
     return_device: bool = False,
     output_format: str = "float32",
     device: DeviceLike = None,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[Union[np.ndarray, torch.Tensor], dict, dict, dict]:
     """Full-song mix style transfer.
 
@@ -264,6 +273,12 @@ def run_diffmst(
         whatever ``output_format`` says) instead of a host array.
       output_format: "float32" or "pcm16" (int16, quantized on the device).
       device: where the song is rendered; None means the CUDA device.
+      use_fx_bus: render the fx bus (per-track sends into the reverb).
+      generator: where the request's one reverb noise is drawn from
+        (``ops.reverb.draw_reverb_noise``); None means a generator seeded 0,
+        as JAX's default key 0.
+      noise: the request's reverb noise, (``_RENDER_BS``, 2, 12,
+        reverb samples + taps - 1), in place of a draw.
 
     Returns:
       (pred_mix (1, 2, total_len), track_param_dict, fx_param_dict,
@@ -273,10 +288,6 @@ def run_diffmst(
         raise ValueError(f"bad output_format {output_format!r}")
     if render_mode not in ("ola", "streaming"):
         raise ValueError(f"bad render_mode {render_mode!r}")
-    if use_fx_bus:
-        raise NotImplementedError(
-            "the fx bus (noise-shaped reverb) is not ported yet: ROADMAP Queue 1, item 9"
-        )
     dev = resolve_device(device)
     total = tracks.shape[-1]
     n_all = tracks.shape[1]
@@ -330,14 +341,21 @@ def run_diffmst(
         tp_full[0, keep] = tp[0].float()
 
     with record_function("run_diffmst.render"):
+        if not use_fx_bus:
+            noise = None
+        elif noise is None:
+            shape = reverb_noise_shape(group_bs, 2, mix_console.reverb_num_samples,
+                                       mix_console.reverb_num_taps)
+            noise = draw_reverb_noise(generator if generator is not None else torch.Generator().manual_seed(0),
+                                      shape, dev)
         if render_mode == "streaming":
             mix = _device_overlap_save(
-                mix_console, use_fx_bus, tracks_dev, gains_dev, tp_full, fp, mp,
+                mix_console, noise, tracks_dev, gains_dev, tp_full, fp, mp,
                 n_blocks, block_len, context_len, group_bs,
             )
         else:
             mix = _device_ola(
-                mix_console, use_fx_bus, tracks_dev, gains_dev, tp_full, fp, mp,
+                mix_console, noise, tracks_dev, gains_dev, tp_full, fp, mp,
                 n_windows, analysis_len, group_bs,
             )
     with record_function("run_diffmst.download"):

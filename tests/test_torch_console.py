@@ -172,16 +172,20 @@ def test_console_counts_no_launch_on_cpu():
     comp_fused.compressor_fused_gain.launches = 0
     tracks, tp, fp, mp = _inputs(3, bs=1, n=2, t=4096)
     for smoother in ("auto", "scan"):
-        out = AdvancedMixConsole(SR, comp_smoother=smoother, device="cpu")(tracks, tp, fp, mp)
+        out = AdvancedMixConsole(SR, comp_smoother=smoother, device="cpu")(tracks, tp, fp, mp, use_fx_bus=False)
         assert torch.isfinite(out.mix).all()
     assert scan1p.onepole_core.launches == 0
     assert comp_fused.compressor_fused_gain.launches == 0
 
 
 def test_fx_bus_raises():
+    """The fx bus runs (tests/test_torch_fxbus.py holds it to JAX's); it
+    raises on reverb noise of the wrong shape."""
     tracks, tp, fp, mp = _inputs(4, bs=1, n=2, t=1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AdvancedMixConsole(SR, device="cpu")(tracks, tp, fp, mp, use_fx_bus=True)
+    console = AdvancedMixConsole(SR, reverb_num_samples=512, reverb_num_taps=31, device="cpu")
+    assert torch.isfinite(console(tracks, tp, fp, mp, use_fx_bus=True).mix).all()
+    with pytest.raises(ValueError, match="reverb noise of shape"):
+        console(tracks, tp, fp, mp, use_fx_bus=True, noise=torch.zeros(1, 2, 12, 512))
 
 
 def test_console_default_device_is_cuda():

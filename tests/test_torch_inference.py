@@ -139,7 +139,7 @@ def test_run_diffmst_short_song_and_identity_ola():
         return torch.full((1, t.shape[1], 2), 0.5), torch.zeros(1, 0), torch.zeros(1, 0)
 
     class Identity:
-        def __call__(self, wins, tp, fp, mp, use_fx_bus=False):
+        def __call__(self, wins, tp, fp, mp, use_fx_bus=False, noise=None):
             return type("Out", (), {"mix": torch.stack([wins[:, 0], wins[:, 1]], dim=1)})
 
         def param_dicts(self, tp, fp, mp):
@@ -161,8 +161,6 @@ def _lufs(x):
 def test_run_diffmst_refuses_what_is_not_ported():
     tracks, ref = _song(total=20000)
     console = AdvancedMixConsole(SR, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_diffmst(tracks, ref, None, console, analysis_len=ANALYSIS, use_fx_bus=True, device="cpu")
     with pytest.raises(ValueError):
         run_diffmst(tracks, ref, None, console, analysis_len=ANALYSIS, render_mode="seamless", device="cpu")
     with pytest.raises(ValueError):
@@ -277,7 +275,7 @@ def test_streaming_render_matches_one_shot():
 
     def render(wins):
         n = wins.shape[0]
-        return console(wins, tp.expand(n, -1, -1), fp.expand(n, -1), mp.expand(n, -1)).mix
+        return console(wins, tp.expand(n, -1, -1), fp.expand(n, -1), mp.expand(n, -1), use_fx_bus=False).mix
 
     one = render(torch.from_numpy(tracks)).numpy()
     ols = overlap_save_render(render, tracks, block_len=16384, context_len=16384, device="cpu")
