@@ -68,7 +68,16 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      its K2 and K2-bwd launches; a 60 s, 8-track request with the fx bus,
      "ola" and "streaming" (realtime factor, seam distance); and
      ``main_torch.py fit`` on ``naive.yaml`` + ``unpaired+feat.yaml`` over
-     [cli]'s corpus and synthetic reference mixes, a subprocess.
+     [cli]'s corpus and synthetic reference mixes, a subprocess;
+ 14. param-est: parameter-estimation pretraining at full width: a
+     ``MixDataModule`` batch of 4 x 2 x 262,144 (synthetic mixes and a
+     silent file), HPSS on the card against the CPU's float64, the
+     ``Remixer`` (2 K2 launches and no K2-bwd a remix) against the kernels'
+     plain versions, three ``ParameterEstimationSystem`` steps (steps/s,
+     peak memory) and ``eval_step``, HDemucs at HDEMUCS_HIGH on synthetic
+     weights (a batch's forward, a clip against the CPU, a step with it as
+     the separator), and ``scripts/param_est_demo_torch.py 20 4``, a
+     subprocess.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -1201,21 +1210,25 @@ def phase_train_profile(system, batch, flags):
 
 @contextlib.contextmanager
 def plain_versions():
-    """The console's K1, K3 and K5 swapped for their plain versions, forward
-    and backward, on the card: the console's modules call these names."""
+    """The console's K1, K2, K3 and K5 swapped for their plain versions,
+    forward and backward, on the card: the console's modules call these
+    names."""
     import importlib
 
-    from diffmst_torch.kernels import iir_fused, scan1p
+    from diffmst_torch.kernels import comp_fused, iir_fused, scan1p
 
     comp_ops = importlib.import_module("diffmst_torch.ops.compressor")
-    saved = (comp_ops.onepole_core, comp_ops.release_min_scan, iir_fused.sosfilt)
+    saved = (comp_ops.onepole_core, comp_ops.release_min_scan, comp_ops.compressor_fused_gain, iir_fused.sosfilt)
     comp_ops.onepole_core = lambda b, a: scan1p._Onepole.apply(b, a, True)
     comp_ops.release_min_scan = lambda g, a: scan1p._MinScan.apply(g, a, True)
+    comp_ops.compressor_fused_gain = lambda x, xd, thr, ratio, knee, alpha, makeup, eps=1e-8: (
+        comp_fused._Compressor.apply(x, xd, comp_fused._param_rows(thr, ratio, knee, alpha, makeup).contiguous(),
+                                     eps, True))
     iir_fused.sosfilt = lambda x, b, a: iir_fused._Sosfilt.apply(x, iir_fused._coef_rows(b, a), True)
     try:
         yield
     finally:
-        comp_ops.onepole_core, comp_ops.release_min_scan, iir_fused.sosfilt = saved
+        comp_ops.onepole_core, comp_ops.release_min_scan, comp_ops.compressor_fused_gain, iir_fused.sosfilt = saved
 
 
 def phase_training_causal():
@@ -1677,6 +1690,201 @@ def phase_feature_loss(root: pathlib.Path, tmp: pathlib.Path) -> dict:
     return launches
 
 
+PE_MIXES, PE_SECONDS = 4, 12.0  # the synthetic 12 s stereo mixes of [param-est], and one silent file
+PE_CLIP = 44100  # the HDemucs clip held against the CPU
+
+
+def _timed(fn, reps=3):
+    """fn's result and its mean wall over ``reps`` calls after a first one, ms."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _rel_err(got, ref) -> float:
+    return float((got.double().cpu() - ref.double().cpu()).abs().max() / ref.double().abs().max())
+
+
+def phase_param_est(root: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """Parameter-estimation pretraining at full width, TF32 off: (a) a
+    ``MixDataModule`` batch of 4 x 2 x 262,144 from synthetic 12 s mixes and
+    a silent file under ``tmp``; (b) HPSS on the card, one song held against
+    the CPU's float64 run; (c) the Remixer (HPSS, ``AdvancedMixConsole(44100)``,
+    the fx bus on): 2 K2 launches and no K2-bwd a remix, against the kernels'
+    plain versions on the same draws; (d) three ``ParameterEstimationSystem``
+    steps with naive.yaml's encoder and a ``ParameterProjector``, and
+    ``eval_step`` twice on a frozen remix; (e) HDemucs at HDEMUCS_HIGH from
+    ``synthetic_hdemucs_state_dict(seed=0)``, strictly loaded: a batch's
+    forward, a 1 s clip against the CPU's float64 run, and a step with the
+    Remixer on it; (f) ``scripts/param_est_demo_torch.py 20 4``, a
+    subprocess. Returns the phase's kernel launches."""
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.data import MixDataModule, write_audio
+    from diffmst_torch.models import HDemucs, ParameterProjector, SpectrogramEncoder, synthetic_hdemucs_state_dict
+    from diffmst_torch.models.separator import hpss_separator
+    from diffmst_torch.ops.loudness import integrated_loudness
+    from diffmst_torch.ops.reverb import draw_reverb_noise, reverb_noise_shape
+    from diffmst_torch.train import ParameterEstimationSystem, Remixer
+    from diffmst_torch.utils.checkpoint import port_hdemucs_state_dict
+
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) the data
+    mixes = tmp / "param_est_mixes"
+    for i, mix in enumerate(synth_ref_mixes(21, PE_MIXES, int(PE_SECONDS * SR))):
+        write_audio(str(mixes / f"mix{i}.wav"), mix, int(SR))
+    write_audio(str(mixes / "silent.wav"), np.zeros((2, int(PE_SECONDS * SR)), np.float32), int(SR))
+    t0 = time.perf_counter()
+    batch = next(MixDataModule(root_dirs=[str(mixes)], length=WINDOW, batch_size=TRAIN_BS, seed=0).train_dataloader())
+    data_s = time.perf_counter() - t0
+    lufs = [integrated_loudness(b.T, SR) for b in batch]
+    line(f"[param-est] data: MixDataModule batch {batch.shape} {batch.dtype} in {data_s:.3f} s from"
+         f" {PE_MIXES} mixes of {PE_SECONDS:.0f} s and a silent one; loudness {', '.join(f'{v:.3f}' for v in lufs)}"
+         f" LUFS, so the silent file was never drawn")
+    require(batch.shape == (TRAIN_BS, 2, WINDOW) and np.isfinite(batch).all(), "the mix batch's shape")
+    require(all(abs(v + 16.0) < 0.05 for v in lufs), f"every drawn mix at -16 LUFS, none silent ({lufs})")
+    x = torch.from_numpy(batch).cuda()
+
+    # (b) HPSS on the card
+    stems, hpss_ms = _timed(lambda: hpss_separator(x))
+    ref = hpss_separator(x[:1].double().cpu())
+    err, rec = _rel_err(stems[:1], ref), _rel_err(stems.sum(dim=1), x)
+    line(f"[param-est] hpss_separator {tuple(x.shape)} -> {tuple(stems.shape)}: {hpss_ms:.2f} ms a batch;"
+         f" song 0 vs the CPU's float64 {err:.3g} of the peak; the stems sum to the mix within {rec:.3g}")
+    require(err <= 1e-4, f"HPSS on the card agrees with the CPU ({err})")
+    require(rec <= 1e-5, f"the HPSS stems sum to the mix ({rec})")
+    del stems
+
+    # (c) the Remixer: the same draws through K2 and through its plain version
+    console = AdvancedMixConsole(SR)  # "auto" = K2; the fx bus's reverb at 65,536 samples and 1,023 taps
+    remixer = Remixer(SR, separator=hpss_separator)
+    gen = torch.Generator().manual_seed(5)
+    tp = torch.rand(TRAIN_BS, 8, console.num_track_control_params, generator=gen).cuda()
+    fp = torch.rand(TRAIN_BS, console.num_fx_bus_control_params, generator=gen).cuda()
+    mp = torch.rand(TRAIN_BS, console.num_master_bus_control_params, generator=gen).cuda()
+    noise = draw_reverb_noise(gen, reverb_noise_shape(TRAIN_BS, 2, console.reverb_num_samples,
+                                                      console.reverb_num_taps), torch.device("cuda"))
+    reset_counts()
+    remixer(x, console, tp=tp, fp=fp, mp=mp, noise=noise)  # the first call makes cuFFT's plans
+    add(read_counts())
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    remix, *_ = remixer(x, console, tp=tp, fp=fp, mp=mp, noise=noise)
+    torch.cuda.synchronize()
+    remix_ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    add(counts)
+    with plain_versions():
+        plain, *_ = remixer(x, console, tp=tp, fp=fp, mp=mp, noise=noise)
+    err, peak = _rel_err(remix, plain), float(remix.abs().max())
+    line(f"[param-est] Remixer (hpss, AdvancedMixConsole(44100), fx bus on): {remix_ms:.1f} ms a warm remix;"
+         f" against the kernels' plain versions {err:.3g} of the peak {peak:.4g}; K2 {counts['K2']},"
+         f" K2-bwd {counts['K2-bwd']}")
+    require(bool(torch.isfinite(remix).all()) and peak <= 4.0, f"the remix finite and within the clip ({peak})")
+    require(err <= 1e-4, f"the remix through K2 agrees with the plain versions ({err})")
+    require(counts["K2"] == 2 and counts["K2-bwd"] == 0 and counts["K1"] == 0,
+            f"a remix launches 2 K2 and no K2-bwd ({counts})")
+    del plain
+
+    # (d) the system at full width
+    encoder = SpectrogramEncoder(embed_dim=512, n_fft=2048, hop_length=512, cnn_base_width=64,
+                                 input_batchnorm=False)  # configs/models/naive.yaml:30
+    torch.manual_seed(0)
+    projector = ParameterProjector(2 * 512, 8, console.num_track_control_params,
+                                   console.num_fx_bus_control_params, console.num_master_bus_control_params)
+    system = ParameterEstimationSystem(encoder, projector, console, remixer=remixer,
+                                       generator=torch.Generator().manual_seed(6))
+    n_params = sum(p.numel() for p in system.params)
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        m = system.train_step(x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        add(counts)
+        vals = {k: float(v) for k, v in m.items()}
+        line(f"[param-est] step {step + 1}: {walls[-1]:.3f} s, losses {vals}, K2 {counts['K2']},"
+             f" K2-bwd {counts['K2-bwd']}")
+        require(all(np.isfinite(v) for v in vals.values()), f"step {step + 1}: the losses finite")
+        require(counts["K2"] == 2 and counts["K2-bwd"] == 0, f"step {step + 1}: 2 K2, no K2-bwd ({counts})")
+    step_peak = torch.cuda.max_memory_allocated()
+    rate = (len(walls) - 1) / sum(walls[1:])
+    line(f"[param-est] ParameterEstimationSystem, {n_params / 1e6:.1f} M params, batch {tuple(x.shape)}:"
+         f" steps 2-{TRAIN_STEPS} {rate:.3f} steps/s, step 1 {walls[0]:.3f} s; peak memory"
+         f" {step_peak / 2**30:.2f} GiB (max_memory_allocated)")
+    frozen = remixer(x, console, torch.Generator().manual_seed(7))
+    e1, e2 = system.eval_step(x, *frozen), system.eval_step(x, *frozen)
+    line(f"[param-est] eval_step on a frozen remix, twice: {({k: float(v) for k, v in e1.items()})}")
+    require(all(torch.equal(e1[k], e2[k]) for k in e1), "eval_step is deterministic")
+    require(all(np.isfinite(float(v)) for v in e1.values()), "eval_step's losses finite")
+    del frozen
+
+    # (e) HDemucs at HDEMUCS_HIGH, from the synthetic torchaudio-layout state dict
+    t0 = time.perf_counter()
+    sd = synthetic_hdemucs_state_dict(seed=0)
+    hdemucs = HDemucs()
+    port_hdemucs_state_dict(sd, hdemucs)  # strict
+    hdemucs_cpu = HDemucs().double().eval()
+    hdemucs_cpu.load_state_dict(hdemucs.state_dict())
+    hdemucs = hdemucs.eval().cuda()
+    load_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        stems, hd_ms = _timed(lambda: hdemucs(x), reps=2)
+        hd_peak = torch.cuda.max_memory_allocated()
+        clip = x[:1, :, :PE_CLIP]
+        err = _rel_err(hdemucs(clip), hdemucs_cpu(clip.double().cpu()))
+    line(f"[param-est] HDemucs (HDEMUCS_HIGH, {sum(v.size for v in sd.values()) / 1e6:.1f} M params, strict load"
+         f" of synthetic_hdemucs_state_dict(seed=0) in {load_s:.2f} s): {tuple(x.shape)} -> {tuple(stems.shape)}"
+         f" in {hd_ms:.1f} ms, peak {hd_peak / 2**30:.2f} GiB; a 1 x 2 x {PE_CLIP} clip vs the CPU's float64"
+         f" {err:.3g} of the stems' max-abs")
+    require(stems.shape == (TRAIN_BS, 4, 2, WINDOW) and bool(torch.isfinite(stems).all()), "HDemucs stems finite")
+    require(err <= 1e-4, f"HDemucs on the card agrees with the CPU ({err})")
+    del stems, hdemucs_cpu
+    system.remixer = Remixer(SR, separator=hdemucs)
+    reset_counts()
+    t0 = time.perf_counter()
+    m = system.train_step(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add(counts)
+    line(f"[param-est] a step with Remixer(separator=HDemucs): {time.perf_counter() - t0:.3f} s,"
+         f" loss {float(m['loss']):.5g}, K2 {counts['K2']}, K2-bwd {counts['K2-bwd']}")
+    require(np.isfinite(float(m["loss"])), "the HDemucs step's loss finite")
+    require(counts["K2"] == 2 and counts["K2-bwd"] == 0, f"the HDemucs step: 2 K2, no K2-bwd ({counts})")
+    del system, hdemucs, x
+    torch.cuda.empty_cache()
+
+    # (f) the demo, as a user runs it
+    demo = tmp / "param_est_demo"
+    demo.mkdir()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(root / "scripts" / "param_est_demo_torch.py"), "20", "4"],
+                          cwd=demo, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"param_est_demo_torch.py exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+            f"\n{proc.stderr[-2000:]}")
+    summary = json.loads((demo / "logs" / "param_est_demo_torch.json").read_text())
+    line(f"[param-est] scripts/param_est_demo_torch.py 20 4: exit 0 in {wall:.1f} s, steps' wall"
+         f" {summary['wall_s']} s, held-out loss {summary['heldout_eval_first']} -> {summary['heldout_eval_last']}"
+         f" (constant-0.5 baseline {summary['constant_half_baseline']})")
+    require(summary["backend"] == "cuda" and summary["steps"] == 20, "the demo ran 20 steps on the card")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, k, **extra):
     """The kernel's entry of the JSON line, with the achieved TB/s of the
     bytes its function must move; the kernel launches and memsets a call,
@@ -1719,6 +1927,8 @@ def main() -> int:
         cli = phase_cli(root, tmp, train_rate)
         torch.cuda.empty_cache()
         feature = phase_feature_loss(root, tmp)
+        torch.cuda.empty_cache()
+        param_est = phase_param_est(root, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1733,13 +1943,13 @@ def main() -> int:
     def entry(key, name, source, replaces, **extra):
         """Launches: the serving requests (K2's three, K1's "scan" render,
         the three streaming ones), the training steps (four, then two
-        causal ones), the CLI's steps, and [feature-loss]'s steps and fx-bus
-        requests."""
-        total = serving[key] + training[key] + cli[key] + feature.get(key, 0)
+        causal ones), the CLI's steps, [feature-loss]'s steps and fx-bus
+        requests, and [param-est]'s remixes."""
+        total = serving[key] + training[key] + cli[key] + feature.get(key, 0) + param_est.get(key, 0)
         return kernel_entry(name, source, replaces, total, stats[name],
                             launches_serving=serving[key], launches_training=training[key],
-                            launches_cli=cli[key], launches_feature_loss=feature.get(key, 0), on_path=True,
-                            **extra)
+                            launches_cli=cli[key], launches_feature_loss=feature.get(key, 0),
+                            launches_param_est=param_est.get(key, 0), on_path=True, **extra)
 
     kernels = [
         entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),

@@ -13,6 +13,10 @@ Port of ``diffmst_tpu/data/dataset.py`` (the reference's
     real reference mixes normalized to -16 LUFS.
   * ``MultitrackDataModule``: train, val and test datasets, collated into
     NumPy batches; the Trainer puts them on the device.
+  * ``MixDataset`` / ``MixDataModule``: stereo mixes only, for parameter
+    estimation: a random file and offset per draw, files that are not
+    stereo, too short or unreadable skipped, silence below -48 LUFS
+    rejected within 32 tries, each mix normalized to -16 LUFS.
 
 Distributed: song lists shard by (rank, world size) of ``torch.distributed``
 when a process group is initialized, else (0, 1).
@@ -20,9 +24,6 @@ when a process group is initialized, else (0, 1).
 Determinism: all sampling flows from a seeded ``np.random.Generator``.
 Each buffer reload prints one line: the songs and tracks loaded, their
 bytes, its seconds and whether the native loader ran.
-
-``MixDataset`` and ``MixDataModule`` (parameter estimation) are not ported
-yet: ROADMAP Queue 1, item 11.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from diffmst_torch.ops.loudness import integrated_loudness
 # remedy instead of being skipped.
 _SKIP_DECODE_ERRORS = (OSError, EOFError, wave.Error, ValueError, RuntimeError)
 
-__all__ = ["TrackExample", "MultitrackDataset", "MultitrackDataModule"]
+__all__ = ["TrackExample", "MultitrackDataset", "MultitrackDataModule", "MixDataset", "MixDataModule"]
 
 
 def _process_shard() -> Tuple[int, int]:
@@ -444,3 +445,105 @@ class MultitrackDataModule:
         if self.test_dataset is None:
             self.test_dataset = MultitrackDataset(**self._test_kwargs)
         return self._iterate(self.test_dataset, batch_size=1)
+
+
+class MixDataset:
+    """Mixes only, for parameter-estimation pretraining (dataloader.py:18-121;
+    the silence-rejection loop, without the reference's debug overrides).
+    Each try draws a path index, then an offset, from one NumPy generator,
+    in JAX's order."""
+
+    def __init__(
+        self,
+        root_dirs: Sequence[str],
+        metadata_files: Sequence[str] = (),
+        length: int = 262144,
+        subset: str = "train",
+        num_examples_per_epoch: int = 10000,
+        target_lufs_db: float = -16.0,
+        seed: int = 0,
+    ) -> None:
+        self.root_dirs = list(root_dirs)
+        self.length = length
+        self.num_examples_per_epoch = num_examples_per_epoch
+        self.target_lufs_db = target_lufs_db
+        self.rng = np.random.default_rng(seed)
+        self.paths: List[str] = []
+        for mf in metadata_files:
+            with open(mf) as f:
+                meta = yaml.safe_load(f)
+            self.paths.extend(meta.get(subset, []) or [])
+        if not self.paths:
+            # the reference's discovery: a recursive wav glob (dataloader.py:25-26)
+            import glob as _glob
+
+            for root in self.root_dirs:
+                for p in _glob.glob(os.path.join(root, "**", "*.wav"), recursive=True):
+                    self.paths.append(os.path.relpath(p, root))
+        if not self.paths:
+            raise ValueError("no mixes in metadata or under root_dirs")
+
+    def __len__(self) -> int:
+        return self.num_examples_per_epoch
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        """A (2, length) float32 mix at ``target_lufs_db``."""
+        for _ in range(32):
+            rel = self.paths[int(self.rng.integers(len(self.paths)))]
+            p = next((c for c in (os.path.join(r, rel) for r in self.root_dirs) if os.path.exists(c)), None)
+            if p is None:
+                continue
+            try:
+                frames, chs, _ = audio_info(p)
+                if chs != 2 or frames < self.length:
+                    continue
+                off = int(self.rng.integers(0, frames - self.length + 1))
+                audio, _ = read_audio(p, start=off, frames=self.length)
+            except UnsupportedAudioFormat:
+                raise  # decode contract: fail loudly, remedy in the message
+            except _SKIP_DECODE_ERRORS:
+                continue
+            lufs = integrated_loudness(audio.T, 44100.0)
+            if not np.isfinite(lufs) or lufs < -48.0:
+                continue  # silence rejection
+            return (audio * 10.0 ** ((self.target_lufs_db - lufs) / 20.0)).astype(np.float32)
+        raise RuntimeError("could not draw a non-silent mix after 32 tries")
+
+
+class MixDataModule:
+    """Batches of mixes, (batch_size, 2, length) NumPy float32, for
+    parameter-estimation pretraining (dataloader.py:423+)."""
+
+    def __init__(
+        self,
+        root_dirs: Sequence[str] = (),
+        metadata_files: Sequence[str] = (),
+        length: int = 262144,
+        batch_size: int = 4,
+        num_examples_per_epoch: int = 10000,
+        target_lufs_db: float = -16.0,
+        seed: int = 0,
+        root_dir: Optional[str] = None,  # the reference's singular name
+        **_unused,
+    ) -> None:
+        if root_dir is not None:
+            root_dirs = list(root_dirs) + [root_dir]
+        self.batch_size = batch_size
+        self.train_dataset = MixDataset(root_dirs, metadata_files, length, "train",
+                                        num_examples_per_epoch, target_lufs_db, seed)
+        self.val_dataset = MixDataset(root_dirs, metadata_files, length, "val",
+                                      max(1, num_examples_per_epoch // 10), target_lufs_db, seed + 1)
+
+    def _iterate(self, ds: MixDataset) -> Iterator[np.ndarray]:
+        batch = []
+        for i in range(len(ds)):
+            batch.append(ds[i])
+            if len(batch) == self.batch_size:
+                yield np.stack(batch)
+                batch = []
+
+    def train_dataloader(self) -> Iterator[np.ndarray]:
+        return self._iterate(self.train_dataset)
+
+    def val_dataloader(self) -> Iterator[np.ndarray]:
+        return self._iterate(self.val_dataset)

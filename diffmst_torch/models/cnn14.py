@@ -9,7 +9,8 @@ BatchNorm follows Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, with
 the ``train`` flag passed down every call as in the Flax model (the module's
 ``training`` attribute plays no part). With ``train=False`` it normalizes with
 the running statistics. With ``train=True`` it normalizes with the batch's
-mean and biased variance over (batch, bins, frames) and updates the running
+mean and biased variance over every axis but the channels' (batch, bins,
+frames here; batch and time in the FXencoder) and updates the running
 statistics to 0.9 * running + 0.1 * batch, the variance biased too.
 ``F.batch_norm(training=True)`` would update running_var with the unbiased
 variance, so the update is written out, under ``no_grad``.
@@ -41,7 +42,7 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps
         )
     with torch.no_grad():
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        var, mean = torch.var_mean(x, dim=(0, *range(2, x.ndim)), unbiased=False)
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
     # batch statistics, biased variance; running statistics left alone

@@ -6,7 +6,7 @@ from diffmst_torch.ops.compressor import compressor, compressor_gain_db
 from diffmst_torch.ops.eq import parametric_eq, parametric_eq_response
 from diffmst_torch.ops.loudness import integrated_loudness, k_weighting_sos
 from diffmst_torch.ops.reverb import fft_convolve, noise_shaped_reverberation, octave_band_filterbank
-from diffmst_torch.ops.stft import hann_window, stft
+from diffmst_torch.ops.stft import hann_window, istft, reflect_pad, stft
 
 __all__ = [
     "db_to_linear",
@@ -26,5 +26,7 @@ __all__ = [
     "noise_shaped_reverberation",
     "octave_band_filterbank",
     "hann_window",
+    "reflect_pad",
     "stft",
+    "istft",
 ]

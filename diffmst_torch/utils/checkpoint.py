@@ -13,7 +13,13 @@
     Flax conv kernels HWIO -> OIHW, Dense kernels transposed, q/k/v stacked
     into ``in_proj_weight``/``in_proj_bias``, BatchNorm scale/bias/mean/var ->
     weight/bias/running_mean/running_var, the four learned tokens as they are.
-    The port keeps its own copy of the mapping.
+    The port keeps its own copy of the mapping. Its siblings carry the
+    parameter-estimation models across: ``fx_encoder_state_dict_from_flax``,
+    ``projector_state_dict_from_flax``, ``unet_state_dict_from_flax`` and
+    ``param_est_state_dict_from_flax`` (JAX's ``{"encoder", "projector"}``).
+  * ``port_hdemucs_state_dict`` / ``load_hdemucs_checkpoint``: a torchaudio
+    HDemucs state dict (or weights file) into ``models.HDemucs``, strictly;
+    a dict without one of HDemucs's four layer lists raises.
 """
 
 from __future__ import annotations
@@ -34,6 +40,12 @@ __all__ = [
     "load_reference_checkpoint",
     "state_dict_from_flax",
     "encoder_state_dict",
+    "fx_encoder_state_dict_from_flax",
+    "projector_state_dict_from_flax",
+    "unet_state_dict_from_flax",
+    "param_est_state_dict_from_flax",
+    "port_hdemucs_state_dict",
+    "load_hdemucs_checkpoint",
 ]
 
 
@@ -107,7 +119,10 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module) -> None:
 
 
 def _t(a) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, dtype=np.float32))
+    """float64 values stay float64 (a float64 reference carried exactly),
+    any other become float32."""
+    a = np.asarray(a)
+    return torch.tensor(a if a.dtype == np.float64 else a.astype(np.float32))
 
 
 def _cnn14(params: Dict, stats: Dict, prefix: str, sd: Dict[str, torch.Tensor]) -> None:
@@ -178,3 +193,103 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for head in ("track_projection", "fx_bus_projection", "master_bus_projection"):
         _dense(ctrl[head], f"controller.{head}", sd)
     return sd
+
+
+def _fx_layer(p: Dict, st: Dict, prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    sd[f"{prefix}.conv.weight"] = _t(np.asarray(p["Conv_0"]["kernel"]).transpose(2, 1, 0))  # (k, in, out) -> OIK
+    sd[f"{prefix}.conv.bias"] = _t(p["Conv_0"]["bias"])
+    if "BatchNorm_0" in p:
+        _batchnorm(p["BatchNorm_0"], st["BatchNorm_0"], f"{prefix}.bn", sd)
+
+
+def fx_encoder_state_dict_from_flax(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tensor]:
+    """A Flax ``FXencoder``'s variables -> the port's ``FXencoder`` state dict
+    (``block{i}`` -> ``blocks.{i}``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in sorted(int(k[len("block"):]) for k in params):
+        p, st = params[f"block{i}"], batch_stats.get(f"block{i}", {})
+        if "conv1" in p:  # a residual block
+            for c in ("conv1", "conv2"):
+                _fx_layer(p[c], st.get(c, {}), f"blocks.{i}.{c}", sd)
+        else:
+            _fx_layer(p, st, f"blocks.{i}", sd)
+    return sd
+
+
+def projector_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A Flax ``ParameterProjector``'s params -> the port's state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for head in ("track_projector", "fx_bus_projector", "master_bus_projector"):
+        _dense(params[head], head, sd)
+    return sd
+
+
+def unet_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A Flax ``UNetSeparator``'s params -> the port's state dict: ``Conv_i``
+    HWIO -> ``convs.i`` OIHW; ``ConvTranspose_i`` (Flax correlates the
+    dilated input with its HWIO kernel) -> ``deconvs.i``, torch's (in, out,
+    kH, kW) flipped in space, since ``conv_transpose2d`` correlates with the
+    flipped kernel."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        kind, i = name.rsplit("_", 1)
+        kernel = np.asarray(p["kernel"])
+        if kind == "Conv":
+            sd[f"convs.{i}.weight"] = _t(kernel.transpose(3, 2, 0, 1))
+            sd[f"convs.{i}.bias"] = _t(p["bias"])
+        elif kind == "ConvTranspose":
+            sd[f"deconvs.{i}.weight"] = _t(np.ascontiguousarray(kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]))
+            sd[f"deconvs.{i}.bias"] = _t(p["bias"])
+        else:
+            raise KeyError(f"unexpected UNetSeparator parameter {name!r}")
+    return sd
+
+
+def param_est_state_dict_from_flax(params: Dict) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX's parameter-estimation variables ``{"encoder": {"params",
+    "batch_stats"}, "projector": {"params"}}`` (``ParamTrainState.params``)
+    -> ``{"encoder": ..., "projector": ...}`` state dicts of the port's
+    encoder (a ``SpectrogramEncoder`` or an ``FXencoder``) and projector."""
+    enc = params["encoder"]
+    p, st = enc["params"], enc.get("batch_stats", {}) or {}
+    if "model" in p:
+        encoder: Dict[str, torch.Tensor] = {}
+        encoder_state_dict(p, st, "", encoder)
+    else:
+        encoder = fx_encoder_state_dict_from_flax(p, st)
+    return {"encoder": encoder, "projector": projector_state_dict_from_flax(params["projector"]["params"])}
+
+
+_HDEMUCS_SECTIONS = ("encoder", "decoder", "tencoder", "tdecoder")
+
+
+def port_hdemucs_state_dict(state_dict: Dict[str, Any], model: torch.nn.Module = None) -> Dict[str, torch.Tensor]:
+    """A torchaudio HDemucs ``state_dict`` (tensors or arrays) -> tensors in
+    torch's layout, which ``models.HDemucs`` takes as they are, loaded into
+    ``model`` with ``strict=True`` when one is given.
+
+    Each of ``encoder``, ``decoder``, ``tencoder`` and ``tdecoder`` must be
+    there with layer indices 0, 1, ..., n - 1: a checkpoint of another
+    architecture raises instead of separating garbage, as JAX's converter
+    does."""
+    for section in _HDEMUCS_SECTIONS:
+        idx = {int(k.split(".")[1]) for k in state_dict if k.startswith(section + ".")}
+        if not idx or idx != set(range(len(idx))):
+            raise ValueError(f"state_dict missing HDemucs section {section!r} — not an HDemucs checkpoint?")
+    sd = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)) for k, v in state_dict.items()}
+    if model is not None:
+        model.load_state_dict(sd, strict=True)
+    return sd
+
+
+def load_hdemucs_checkpoint(path: str, model: torch.nn.Module = None, **hdemucs_kwargs) -> torch.nn.Module:
+    """Load an HDemucs weights file (a raw state dict, or a dict with a
+    ``state_dict`` entry) strictly into ``model``, or into a new
+    ``HDemucs(**hdemucs_kwargs)`` on the host; returns the model."""
+    from diffmst_torch.models.hdemucs import HDemucs
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    model = HDemucs(**hdemucs_kwargs) if model is None else model
+    port_hdemucs_state_dict(sd, model)
+    return model

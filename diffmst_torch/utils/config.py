@@ -47,12 +47,6 @@ CLASS_ALIASES: Dict[str, str] = {
 _NOT_PORTED: Dict[str, str] = {
     "WaveformTransformerEncoder": "12",
     "PositionalEncoding": "12",
-    "ParameterProjector": "11",
-    "FXencoder": "11",
-    "Remixer": "11",
-    "ParameterEstimationSystem": "11",
-    "MixDataModule": "11",
-    "MixDataset": "11",
     "LogAudioCallback": "12",
     "LogReferenceMix": "12",
     "WandbLogger": "12",

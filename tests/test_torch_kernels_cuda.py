@@ -748,3 +748,36 @@ def test_kernels_refuse_what_they_do_not_take(card):
         iir_fused._launch(x, coef[:, :4].contiguous())
     with pytest.raises(ValueError):
         iir_fused._launch(x, torch.zeros(17, 5, 2, device=card))  # over 16 sections
+
+
+def test_remixer_remix_through_k2_matches_plain(card, monkeypatch):
+    """The parameter-estimation Remixer (HPSS, ``AdvancedMixConsole(44100)``,
+    the fx bus on, the tanh clip) at 4 x 2 x 262,144: its remix through K2,
+    two launches (the tracks and the master bus), against the same remix
+    with K2's plain version on the same draws, within 1e-4 of the peak."""
+    import importlib
+
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.ops.reverb import draw_reverb_noise, reverb_noise_shape
+    from diffmst_torch.train import Remixer
+
+    gen = torch.Generator().manual_seed(3)
+    t = torch.arange(262144) / SR
+    x = (0.1 * torch.randn(4, 2, 262144, generator=gen) + 0.2 * torch.sin(2 * np.pi * 220.0 * t)).to(card)
+    console = AdvancedMixConsole(SR)
+    draws = dict(tp=torch.rand(4, 8, 27, generator=gen).to(card), fp=torch.rand(4, 25, generator=gen).to(card),
+                 mp=torch.rand(4, 26, generator=gen).to(card),
+                 noise=draw_reverb_noise(gen, reverb_noise_shape(4, 2, 65536, 1023), card))
+    remixer = Remixer(SR)
+    before = comp_fused.compressor_fused_gain.launches
+    remix, *_ = remixer(x, console, **draws)
+    torch.cuda.synchronize()
+    assert comp_fused.compressor_fused_gain.launches == before + 2
+    comp_ops = importlib.import_module("diffmst_torch.ops.compressor")
+    monkeypatch.setattr(comp_ops, "compressor_fused_gain", lambda x, xd, thr, ratio, knee, alpha, makeup, eps=1e-8: (
+        comp_fused._Compressor.apply(x, xd, comp_fused._param_rows(thr, ratio, knee, alpha, makeup).contiguous(),
+                                     eps, True)))
+    plain, *_ = remixer(x, console, **draws)
+    assert comp_fused.compressor_fused_gain.launches == before + 2
+    assert bool(torch.isfinite(remix).all()) and float(remix.abs().max()) <= 4.0
+    assert _rel(remix, plain) <= 1e-4

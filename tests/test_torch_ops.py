@@ -745,14 +745,15 @@ _FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "diffmst_tpu"}
 
 def _port_sources():
     files = sorted((REPO / "diffmst_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "main_torch.py", REPO / "scripts" / "make_synth_corpus_torch.py"]
+    files += [REPO / "chip_smoke.py", REPO / "main_torch.py", *sorted((REPO / "scripts").glob("*_torch.py"))]
     return files
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_never_imports_jax(path):
     """No module of the port, nor chip_smoke.py, the port's CLI
-    (main_torch.py) or its corpus script, imports JAX or the JAX package."""
+    (main_torch.py) or its scripts (scripts/*_torch.py), imports JAX or the
+    JAX package."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
