@@ -77,7 +77,18 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      peak memory) and ``eval_step``, HDemucs at HDEMUCS_HIGH on synthetic
      weights (a batch's forward, a clip against the CPU, a step with it as
      the separator), and ``scripts/param_est_demo_torch.py 20 4``, a
-     subprocess.
+     subprocess;
+ 15. eval: evaluation and serving at full width: two 60 s, 8-track songs
+     (``scripts/make_eval_songs_torch.py``), ``scripts/
+     eval_all_combo_torch.py`` over them (16 CSV rows; one upload a song, 12
+     K2 launches a request; a request again with the track cache cleared,
+     bitwise equal), 20 iterations of ``scripts/online_torch.py::
+     optimize_params`` (K2 and K2-bwd; 3 held against the plain versions),
+     ``main_torch.py export`` as a subprocess, and a fresh process that
+     loads the export without the model's code and serves a song with
+     ``run_exported`` (6 K2 launches traced, against ``run_diffmst``'s
+     mix), then ``scripts/eval_listen_torch.py`` and ``scripts/
+     run_torch.py``.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -1885,6 +1896,334 @@ def phase_param_est(root: pathlib.Path, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------- eval
+
+EVAL_SONGS, EVAL_SECTION, EVAL_SECTIONS = 2, 441000, 2
+ONLINE_ITERS, ONLINE_CHECK_ITERS = 20, 3
+EXPORT_RENDER_BS = 8
+
+# The serving process of [eval] (e): it imports only the kernels and the
+# export module, loads the export, serves one song in "ola" and traces a
+# second request. argv: repository root, export directory, song directory.
+EXPORT_SERVER = r"""
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import diffmst_torch.kernels
+from diffmst_torch.kernels import comp_fused, scan1p
+from diffmst_torch.utils.export import kernel_nodes, load_inference_export, run_exported
+from diffmst_torch.utils.device import use_full_float32
+
+use_full_float32()
+assert "diffmst_torch.models" not in sys.modules and "diffmst_torch.console" not in sys.modules
+plain = {"K2": 0, "K1": 0}
+forward_plain, onepole_plain = comp_fused._forward_plain, scan1p.onepole_core_plain
+def counted(key, fn):
+    def call(*a, **k):
+        plain[key] += 1
+        return fn(*a, **k)
+    return call
+comp_fused._forward_plain = counted("K2", forward_plain)
+scan1p.onepole_core_plain = counted("K1", onepole_plain)
+song = sys.argv[3]
+tracks, ref = np.load(song + "/tracks.npy"), np.load(song + "/ref.npy")
+t0 = time.perf_counter()
+ex = load_inference_export(sys.argv[2])
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+comp_fused.compressor_fused_gain.launches = 0
+t0 = time.perf_counter()
+mix = run_exported(ex, tracks, ref, render_mode="ola")
+torch.cuda.synchronize()
+cold_s = time.perf_counter() - t0
+launches = comp_fused.compressor_fused_gain.launches
+t0 = time.perf_counter()
+run_exported(ex, tracks, ref, render_mode="ola")
+torch.cuda.synchronize()
+warm_s = time.perf_counter() - t0
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    run_exported(ex, tracks, ref, render_mode="ola")
+    torch.cuda.synchronize()
+cuda = torch.autograd.DeviceType.CUDA
+names = [e.name for e in prof.events() if e.device_type == cuda]
+ops = [e.name for e in prof.events() if e.device_type != cuda and e.name.startswith("diffmst::")]
+np.save(song + "/exported_mix.npy", mix)
+print(json.dumps(dict(
+    load_s=load_s, cold_s=cold_s, warm_s=warm_s, k2_launches=launches,
+    traced_k2_kernels=sum("CompressorOp" in n for n in names), traced_device_events=len(names),
+    traced_ops={n: ops.count(n) for n in sorted(set(ops))}, plain_calls=plain,
+    render_nodes=kernel_nodes(ex.programs[1]), predict_nodes=kernel_nodes(ex.programs[0]),
+    device=ex.manifest["device"], modules_loaded=sorted(m for m in sys.modules if m.startswith("diffmst_torch.")),
+)))
+"""
+
+
+def _eval_in_process(d: pathlib.Path, ev, ckpt: pathlib.Path, ckpt_s: float) -> dict:
+    """[eval] (a)-(c) and (f), in this process: the songs,
+    ``eval_all_combo_torch.py``'s ``main``, the online loop, the listening
+    sweep and ``run_torch.py``. Returns their kernel launches."""
+    import csv
+    import importlib
+
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.data import write_audio
+    from diffmst_torch.ops.loudness import integrated_loudness
+    from diffmst_torch.utils import inference
+
+    songs = d / "songs"
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    importlib.import_module("scripts.make_eval_songs_torch").main(
+        ["--out", str(songs), "--n", str(EVAL_SONGS), "--t", str(int(SONG_S * SR))])
+    for song in songs.iterdir():  # the last stem silent: the gate drops it
+        write_audio(str(song / "tracks" / f"stem_{N_TRACKS - 1:02d}.wav"),
+                    np.zeros((2, int(SONG_S * SR)), np.float32), int(SR))
+    line(f"[eval] (a) {EVAL_SONGS} songs of {SONG_S:.0f} s, {N_TRACKS} stems (one silent) in"
+         f" {time.perf_counter() - t0:.2f} s; checkpoint {ckpt.stat().st_size} bytes saved in {ckpt_s:.2f} s")
+
+    # (b) eval_all_combo_torch.py's main, each request timed and counted
+    walls, k2s = [], []
+    run = ev.run_diffmst
+
+    def timed_run(*args, **kwargs):
+        torch.cuda.synchronize()
+        k2 = _counters()["K2"].launches
+        t0 = time.perf_counter()
+        out = run(*args, **kwargs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        k2s.append(_counters()["K2"].launches - k2)
+        return out
+
+    reset_counts()
+    uploads = inference.track_uploads
+    ev.run_diffmst = timed_run
+    t0 = time.perf_counter()
+    try:
+        rows = ev.main(["--examples_dir", str(songs), "--output_dir", str(d / "eval_out"), "--ckpt", str(ckpt),
+                        "--section_len", str(EVAL_SECTION), "--num_sections", str(EVAL_SECTIONS)])
+    finally:
+        ev.run_diffmst = run
+    main_s = time.perf_counter() - t0
+    uploads = inference.track_uploads - uploads
+    counts = read_counts()
+    add(counts)
+    with open(d / "eval_out" / "results.csv") as f:
+        csv_rows = list(csv.DictReader(f))
+    numbers = [float(v) for r in csv_rows for k, v in r.items() if k not in ("song", "method")]
+    line(f"[eval] (b) eval_all_combo_torch.py: {len(csv_rows)} rows in {main_s:.2f} s; {len(walls)} requests,"
+         f" request 1 {walls[0]:.3f} s, the warm ones {min(walls[1:]):.3f}-{max(walls[1:]):.3f} s"
+         f" (mean {np.mean(walls[1:]):.3f}); uploads {uploads} ({EVAL_SONGS} songs); K2 a request {sorted(set(k2s))};"
+         f" launches {counts}")
+    require(len(csv_rows) == 2 * EVAL_SONGS * EVAL_SECTIONS**2 == len(rows), f"16 CSV rows ({len(csv_rows)})")
+    require(list(csv_rows[0]) == ["song", "method", "track_start", "ref_start"]
+            + [f"{w}_{k}" for w in ("mix", "ref") for k in ("rms", "crest_factor", "stereo_width",
+                                                            "stereo_imbalance", "barkspectrum_mean")]
+            + ["mrstft_to_ref", "sisdr_to_ref"], f"the JAX script's columns ({list(csv_rows[0])})")
+    require(all(np.isfinite(numbers)), "every CSV number finite")
+    require(uploads == EVAL_SONGS, f"one upload a song ({uploads})")
+    require(k2s == [12] * len(walls), f"12 K2 launches a request ({k2s})")
+    require(counts["K2-bwd"] == 0 and counts["K1"] == 0, "the eval went through K2 alone")
+
+    # (c) the online loop: Adam through the differentiated console
+    online = importlib.import_module("scripts.online_torch")
+    console = AdvancedMixConsole(SR)
+    tracks, ref = ev.load_song(str(songs / "song_00"))
+    block = tracks[..., :WINDOW].copy()
+    for i in range(block.shape[1]):
+        lufs = integrated_loudness(block[0, i], SR)
+        if np.isfinite(lufs):
+            block[0, i] *= 10 ** ((-48.0 - lufs) / 20.0)
+    block_t = torch.from_numpy(block).cuda()
+    ref_t = torch.from_numpy(np.ascontiguousarray(ref[..., :WINDOW])).cuda()
+    init = online.init_raw_params(1, N_TRACKS, console, torch.Generator().manual_seed(0))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        *_, history = online.optimize_params(block_t, ref_t, console, n_iters=ONLINE_ITERS, log_every=1,
+                                             init_raw=init)
+    torch.cuda.synchronize()
+    online_s = time.perf_counter() - t0
+    counts = read_counts()
+    add(counts)
+    line(f"[eval] (c) optimize_params: {ONLINE_ITERS} iterations on 1 x {N_TRACKS} x {WINDOW} in {online_s:.2f} s"
+         f" ({ONLINE_ITERS / online_s:.2f} it/s), loss {history[0]:.5f} -> {history[-1]:.5f};"
+         f" an iteration: K2 {counts['K2'] / ONLINE_ITERS:g}, K2-bwd {counts['K2-bwd'] / ONLINE_ITERS:g}")
+    require(all(np.isfinite(history)) and history[-1] < history[0], "the online loss falls")
+    require(counts["K2"] == 2 * ONLINE_ITERS and counts["K2-bwd"] == 2 * ONLINE_ITERS,
+            f"K2 and K2-bwd twice an iteration ({counts})")
+    with contextlib.redirect_stdout(io.StringIO()):
+        # launches made for this comparison are not counted
+        got = online.optimize_params(block_t, ref_t, console, n_iters=ONLINE_CHECK_ITERS, init_raw=init)[:3]
+        with plain_versions():
+            want = online.optimize_params(block_t, ref_t, console, n_iters=ONLINE_CHECK_ITERS, init_raw=init)[:3]
+    errs = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    line(f"[eval] (c) {ONLINE_CHECK_ITERS} iterations through the kernels vs the plain versions on the card:"
+         f" parameters off by {', '.join(f'{e:.3g}' for e in errs)} of their max-abs (track, fx, master)")
+    require(max(errs) <= 1e-4, f"the online parameters agree with the plain versions' ({errs})")
+
+    # (f) the listening sweep and one song from the command line's entry
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        written = importlib.import_module("scripts.eval_listen_torch").main(
+            ["--examples_dir", str(songs), "--output_dir", str(d / "listen"), "--ckpt", str(ckpt),
+             "--levels", "-24", "-12"])
+    listen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        mix = importlib.import_module("scripts.run_torch").main(
+            ["--track_dir", str(songs / "song_01" / "tracks"), "--ref", str(songs / "song_01" / "ref.wav"),
+             "--output", str(d / "run.wav"), "--ckpt", str(ckpt)])
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    add(counts)
+    line(f"[eval] (f) eval_listen_torch.py: {len(written)} wavs in {listen_s:.2f} s; run_torch.py: a"
+         f" {mix.shape} mix in {run_s:.2f} s; launches {counts}")
+    require(len(written) == 2 * EVAL_SONGS and all(pathlib.Path(w).exists() for w in written), "4 listening wavs")
+    require(np.isfinite(mix).all() and (d / "run.wav").exists(), "run_torch.py wrote its mix")
+    return launches
+
+
+def phase_eval(root: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """Evaluation and serving as a user runs them, at full width
+    (``configs/models/naive.yaml``'s model with seeded weights saved as a
+    port checkpoint, ``AdvancedMixConsole(44100)``): (a) two 60 s, 8-track
+    songs from ``scripts/make_eval_songs_torch.py`` (one stem silent, under
+    the gate); (b) ``scripts/eval_all_combo_torch.py``'s ``main`` over them
+    (2 sections of 441,000: 4 combinations a song, 16 CSV rows), one upload
+    a song and 12 K2 launches a request, and one combination rendered again
+    with the track cache cleared, bitwise equal; (c) ``scripts/
+    online_torch.py::optimize_params``, 20 iterations on a 262,144-sample
+    block (K2 and K2-bwd), 3 of them held against the same loop on the
+    kernels' plain versions on the card; (d) ``main_torch.py export`` as a
+    subprocess (8 tracks, window 262,144, 8 windows a render call), which
+    runs beside (a)-(c) and (f), so the combination of (b) is rendered
+    again, cached and uncached, alone on the card after it; (e) a second
+    subprocess that imports only ``diffmst_torch.kernels`` and
+    ``diffmst_torch.utils.export``, loads the export and serves a song by
+    ``run_exported``, within 1e-4 of the peak of ``run_diffmst``'s mix, its
+    render through K2 (6 launches a request, traced) and no plain version;
+    (f) ``scripts/eval_listen_torch.py`` over the 2 songs at 2 levels and
+    ``scripts/run_torch.py`` on one song. Returns the phase's kernel
+    launches."""
+    import importlib
+
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.models import MixStyleTransferModel
+    from diffmst_torch.utils import inference
+
+    ev = importlib.import_module("scripts.eval_all_combo_torch")
+    phase_t0 = time.perf_counter()
+    d = tmp / "eval"
+    songs = d / "songs"
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # the seeded weights as a port checkpoint; (d) main_torch.py export, as
+    # a user runs it, in the background while (a)-(c) and (f) run here
+    model = MixStyleTransferModel.build(generator=torch.Generator().manual_seed(0))
+    ckpt = d / "model.pt"
+    d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    torch.save({"model": model.state_dict()}, ckpt)
+    ckpt_s = time.perf_counter() - t0
+    export_dir = d / "serving_export"
+    export_t0 = time.perf_counter()
+    with open(d / "export.out", "w") as out_f, open(d / "export.err", "w") as err_f:
+        exporter = subprocess.Popen(
+            [sys.executable, "main_torch.py", "export", "-c", "configs/config.yaml", "-c",
+             "configs/models/naive.yaml", "--ckpt_path", str(ckpt), "--num_tracks", str(N_TRACKS),
+             "--analysis_len", str(WINDOW), "--render_bs", str(EXPORT_RENDER_BS), "--output", str(export_dir)],
+            cwd=root, stdout=out_f, stderr=err_f, text=True)
+        try:
+            launches.update(_eval_in_process(d, ev, ckpt, ckpt_s))
+        finally:
+            try:
+                exporter.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                exporter.kill()
+                exporter.wait()
+    export_wall = time.perf_counter() - export_t0
+    out = (d / "export.out").read_text()
+    if exporter.returncode != 0:
+        raise RuntimeError(f"check failed: main_torch.py export exited {exporter.returncode}:\n"
+                           f"{out[-3000:]}\n{(d / 'export.err').read_text()[-3000:]}")
+    export_line = [ln for ln in out.splitlines() if ln.startswith("export: wrote")]
+    export_bytes = sum(f.stat().st_size for f in export_dir.iterdir())
+    line(f"[eval] (d) main_torch.py export (beside (a)-(c), (f)): exit 0 in {export_wall:.1f} s; {export_line[-1]};"
+         f" {export_bytes} bytes")
+
+    # (b) one combination again, alone on the card: cached, then uncached
+    console = AdvancedMixConsole(SR)
+    apply = ev.model_apply(model)
+    tracks, ref = ev.load_song(str(d / "songs" / "song_00"))
+    reset_counts()
+    mixes = []
+    for clear in (False, False, True):
+        if clear:
+            inference.clear_track_cache()
+        before = inference.track_uploads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mix, td, _, _ = inference.run_diffmst(tracks, ref, apply, console)
+        torch.cuda.synchronize()
+        mixes.append((mix, time.perf_counter() - t0, inference.track_uploads - before))
+    counts = read_counts()
+    add(counts)
+    line(f"[eval] (b) song_00 (0, 0) three times, the cache cleared before the third: walls"
+         f" {', '.join(f'{w:.3f}' for _, w, _ in mixes)} s, uploads {[u for _, _, u in mixes]},"
+         f" bitwise equal {all(np.array_equal(m, mixes[0][0]) for m, _, _ in mixes)}")
+    require([u for _, _, u in mixes] == [1, 0, 1], "an upload, a hit, an upload after clearing")
+    require(all(np.array_equal(m, mixes[0][0]) for m, _, _ in mixes), "cached and uncached mixes bitwise equal")
+    require(td["compressor"]["ratio"].shape == (1, N_TRACKS - 1), "the silent stem was gated")
+    reference_mix, warm_wall = mixes[0][0], mixes[1][1]
+
+    # (e) a fresh process serves the export
+    song_npy = d / "song_npy"
+    song_npy.mkdir()
+    np.save(song_npy / "tracks.npy", tracks)
+    np.save(song_npy / "ref.npy", ref)
+    server = d / "export_server.py"
+    server.write_text(EXPORT_SERVER)
+    out, serve_wall = _run_cli(root, [str(server), str(root), str(export_dir), str(song_npy)],
+                               "the export's serving process")
+    served = json.loads(out.strip().splitlines()[-1])
+    exported_mix = np.load(song_npy / "exported_mix.npy")
+    peak = float(np.abs(reference_mix).max())
+    err = float(np.abs(exported_mix - reference_mix).max())
+    add({"K2": served["k2_launches"]})
+    line(f"[eval] (e) run_exported in a fresh process: exit 0 in {serve_wall:.1f} s; load {served['load_s']:.2f} s,"
+         f" request 1 {served['cold_s']:.3f} s, request 2 {served['warm_s']:.3f} s (run_diffmst's warm"
+         f" {warm_wall:.3f} s); K2 launches {served['k2_launches']}, traced K2 kernels"
+         f" {served['traced_k2_kernels']} of {served['traced_device_events']} device events, ops"
+         f" {served['traced_ops']}; graph nodes {served['render_nodes']}; plain calls {served['plain_calls']};"
+         f" vs run_diffmst {err:.3g} of peak {peak:.3g}")
+    require(served["device"] == "cuda" and not any(m.startswith(("diffmst_torch.models", "diffmst_torch.console"))
+                                                   for m in served["modules_loaded"]),
+            "the export served on the card without the model's or the console's code")
+    require(served["render_nodes"] == {"diffmst::compressor_fused_gain": 2}, "the render graph holds K2's node twice")
+    require(served["k2_launches"] == 6 and served["traced_k2_kernels"] == 6,
+            f"6 K2 launches a request ({served['k2_launches']}, traced {served['traced_k2_kernels']})")
+    require(served["plain_calls"] == {"K2": 0, "K1": 0}, "no plain version ran")
+    require(exported_mix.shape == reference_mix.shape and np.isfinite(exported_mix).all(), "exported mix finite")
+    require(err <= 1e-4 * peak, f"the exported mix agrees with run_diffmst's ({err} of {peak})")
+
+    line(f"[eval] the phase: {time.perf_counter() - phase_t0:.1f} s; launches {launches}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, k, **extra):
     """The kernel's entry of the JSON line, with the achieved TB/s of the
     bytes its function must move; the kernel launches and memsets a call,
@@ -1929,6 +2268,8 @@ def main() -> int:
         feature = phase_feature_loss(root, tmp)
         torch.cuda.empty_cache()
         param_est = phase_param_est(root, tmp)
+        torch.cuda.empty_cache()
+        evaluation = phase_eval(root, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1944,12 +2285,15 @@ def main() -> int:
         """Launches: the serving requests (K2's three, K1's "scan" render,
         the three streaming ones), the training steps (four, then two
         causal ones), the CLI's steps, [feature-loss]'s steps and fx-bus
-        requests, and [param-est]'s remixes."""
-        total = serving[key] + training[key] + cli[key] + feature.get(key, 0) + param_est.get(key, 0)
+        requests, [param-est]'s remixes, and [eval]'s requests, online
+        iterations and exported requests."""
+        total = (serving[key] + training[key] + cli[key] + feature.get(key, 0) + param_est.get(key, 0)
+                 + evaluation.get(key, 0))
         return kernel_entry(name, source, replaces, total, stats[name],
                             launches_serving=serving[key], launches_training=training[key],
                             launches_cli=cli[key], launches_feature_loss=feature.get(key, 0),
-                            launches_param_est=param_est.get(key, 0), on_path=True, **extra)
+                            launches_param_est=param_est.get(key, 0), launches_eval=evaluation.get(key, 0),
+                            on_path=True, **extra)
 
     kernels = [
         entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),

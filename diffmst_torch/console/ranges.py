@@ -18,6 +18,7 @@ __all__ = [
     "denormalize",
     "normalize",
     "denormalize_parameters",
+    "validate_normalized",
     "split_track_params",
     "split_fx_bus_params",
     "split_master_bus_params",
@@ -134,6 +135,18 @@ def denormalize_parameters(
             lo, hi = param_ranges[effect][name]
             out[effect][name] = denormalize(val, hi, lo)
     return out
+
+
+def validate_normalized(param_dict: ParamDict) -> None:
+    """Raise ``ValueError`` where a normalized parameter leaves [0, 1], with
+    JAX's message (the reference raises inside its forward; this check
+    reads every tensor to the host, so call it outside a traced graph)."""
+    for effect, params in param_dict.items():
+        for name, val in params.items():
+            lo = float(torch.min(val))
+            hi = float(torch.max(val))
+            if lo < 0.0 or hi > 1.0:
+                raise ValueError(f"Parameter {name} of effect {effect} is out of range [{lo}, {hi}].")
 
 
 _EQ_KEYS = [

@@ -19,7 +19,9 @@ import threading
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_kernels", "load_library", "build_log"]
+import torch
+
+__all__ = ["SOURCES", "BUILD_DIR", "build_kernels", "load_library", "build_log", "differentiated"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diffmst_torch_kernels"
@@ -99,3 +101,11 @@ def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.diffmst_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def differentiated(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``. A wrapper runs the
+    calls it does not record through its ``torch.ops.diffmst`` operator,
+    which ``torch.export`` traces as one node (fake tensors have no data
+    pointer for a launch)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)

@@ -59,7 +59,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from diffmst_torch.kernels._build import check_launch, load_library
+from diffmst_torch.kernels._build import check_launch, differentiated, load_library
 from diffmst_torch.kernels.scan1p import onepole_core_plain
 
 __all__ = [
@@ -275,6 +275,23 @@ class _Compressor(torch.autograd.Function):
         return dx, dxd, dparams, None, None
 
 
+@torch.library.custom_op("diffmst::compressor_fused_gain", mutates_args=(), device_types="cuda")
+def _compressor_op(x: torch.Tensor, x_delayed: torch.Tensor, params: torch.Tensor, eps: float) -> torch.Tensor:
+    """K2's forward as an operator that ``torch.export`` can trace: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    return _launch(x, x_delayed, params, eps, envelope=False)[0]
+
+
+@_compressor_op.register_kernel("cpu")
+def _(x, x_delayed, params, eps):
+    return _forward_plain(x, x_delayed, params, eps)[0]
+
+
+@_compressor_op.register_fake
+def _(x, x_delayed, params, eps):
+    return torch.empty_like(x)
+
+
 def compressor_fused_gain(
     x: torch.Tensor,
     x_delayed: torch.Tensor,
@@ -286,8 +303,12 @@ def compressor_fused_gain(
     eps: float = 1e-8,
 ) -> torch.Tensor:
     """Compressed x_delayed, gain detected on x; differentiable in all seven
-    tensors. CPU tensors take the plain versions, CUDA tensors the kernels."""
+    tensors. CPU tensors take the plain versions, CUDA tensors the kernels.
+    A call that autograd does not record goes through the operator
+    ``torch.ops.diffmst.compressor_fused_gain``."""
     params = _param_rows(threshold_db, ratio, knee_db, alpha, makeup_db).contiguous()
+    if not differentiated(x, x_delayed, params):
+        return _compressor_op(x, x_delayed, params, eps)
     return _Compressor.apply(x, x_delayed, params, eps, x.device.type == "cpu")
 
 

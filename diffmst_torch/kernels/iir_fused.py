@@ -70,7 +70,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from diffmst_torch.kernels._build import check_launch, load_library
+from diffmst_torch.kernels._build import check_launch, differentiated, load_library
 from diffmst_torch.ops.iir import biquad_scan, lti2_scan
 
 __all__ = ["sosfilt", "sosfilt_plain", "sosfilt_backward", "sosfilt_backward_plain"]
@@ -278,11 +278,33 @@ class _Sosfilt(torch.autograd.Function):
         return dx, dcoef, None
 
 
+@torch.library.custom_op("diffmst::sosfilt", mutates_args=(), device_types="cuda")
+def _sosfilt_op(x: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
+    """K5's forward from the (S, 5, B) coefficient rows as an operator that
+    ``torch.export`` can trace: the kernel on CUDA tensors (no stages
+    written), the plain version on CPU tensors."""
+    return _launch(x, coef, keep_stages=False)[0]
+
+
+@_sosfilt_op.register_kernel("cpu")
+def _(x, coef):
+    return _forward_plain(x, coef)[0]
+
+
+@_sosfilt_op.register_fake
+def _(x, coef):
+    return torch.empty_like(x)
+
+
 def sosfilt(x: torch.Tensor, sos_b: torch.Tensor, sos_a: torch.Tensor) -> torch.Tensor:
     """The cascade of the (B, S, 3) sections over x (B, T) from zero state;
     differentiable in x, sos_b and sos_a. CPU tensors take the plain
-    versions, CUDA tensors the kernels."""
-    return _Sosfilt.apply(x, _coef_rows(sos_b, sos_a), x.device.type == "cpu")
+    versions, CUDA tensors the kernels. A call that autograd does not record
+    goes through the operator ``torch.ops.diffmst.sosfilt``."""
+    coef = _coef_rows(sos_b, sos_a)
+    if not differentiated(x, coef):
+        return _sosfilt_op(x, coef)
+    return _Sosfilt.apply(x, coef, x.device.type == "cpu")
 
 
 def sosfilt_backward(x, stages, y, coef, dy):

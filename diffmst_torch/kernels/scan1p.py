@@ -108,7 +108,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from diffmst_torch.kernels._build import check_launch, load_library
+from diffmst_torch.kernels._build import check_launch, differentiated, load_library
 
 __all__ = [
     "onepole_core",
@@ -349,10 +349,31 @@ class _Onepole(torch.autograd.Function):
         return db, (dalpha if ctx.needs_input_grad[1] else None), None
 
 
+@torch.library.custom_op("diffmst::onepole_core", mutates_args=(), device_types="cuda")
+def _onepole_op(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """K1's (K4's with a per-sample alpha) forward as an operator that
+    ``torch.export`` can trace: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    return _launch(b, alpha)
+
+
+@_onepole_op.register_kernel("cpu")
+def _(b, alpha):
+    return onepole_core_plain(b, alpha)
+
+
+@_onepole_op.register_fake
+def _(b, alpha):
+    return torch.empty_like(b)
+
+
 def onepole_core(b: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """y[n] = alpha * y[n-1] + b[n] over the last axis of b (B, T); alpha (B,)
     or (B, T). Differentiable in b and alpha. CPU tensors take the plain
-    versions, CUDA tensors the kernels."""
+    versions, CUDA tensors the kernels. A call that autograd does not record
+    goes through the operator ``torch.ops.diffmst.onepole_core``."""
+    if not differentiated(b, alpha):
+        return _onepole_op(b, alpha)
     return _Onepole.apply(b, alpha, b.device.type == "cpu")
 
 
@@ -469,10 +490,31 @@ class _MinScan(torch.autograd.Function):
         return dg, (dalpha if ctx.needs_input_grad[1] else None), None
 
 
+@torch.library.custom_op("diffmst::release_min_scan", mutates_args=(), device_types="cuda")
+def _minscan_op(g: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """K3's forward as an operator that ``torch.export`` can trace: the
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    return _launch_minscan(g, alpha)
+
+
+@_minscan_op.register_kernel("cpu")
+def _(g, alpha):
+    return release_min_scan_plain(g, alpha)
+
+
+@_minscan_op.register_fake
+def _(g, alpha):
+    return torch.empty_like(g)
+
+
 def release_min_scan(g: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """y[n] = min(g[n], alpha * y[n-1] + (1 - alpha) * g[n]) over the last
     axis of g (B, T) from y[-1] = 0; alpha (B,). Differentiable in g and
-    alpha. CPU tensors take the plain versions, CUDA tensors the kernels."""
+    alpha. CPU tensors take the plain versions, CUDA tensors the kernels. A
+    call that autograd does not record goes through the operator
+    ``torch.ops.diffmst.release_min_scan``."""
+    if not differentiated(g, alpha):
+        return _minscan_op(g, alpha)
     return _MinScan.apply(g, alpha, g.device.type == "cpu")
 
 

@@ -16,9 +16,12 @@ Port of ``diffmst_tpu/utils/inference.py``. ``run_diffmst``:
          one render of the whole song instead of being cross-faded. With a
          causal console (``comp_smoother="decoupled"``,
          ``eq_method="scan"``) the blocks join without seams.
-The song goes to the device once and the mix comes back once, or stays on
-the device (``return_device``). With the fx bus, one reverb noise draw
-serves the whole request: every console call takes the same
+The song goes to the device once and stays there, cached for the next
+calls on the same host array (``_device_tracks``, the last
+``_TRACK_CACHE_SONGS`` songs); only the gains and the reference travel a
+call. The mix comes back once, or stays on the device
+(``return_device``). With the fx bus, one reverb noise draw serves the
+whole request: every console call takes the same
 (``_RENDER_BS``, 2, 12, reverb samples + taps - 1) noise, as every call of
 JAX's render takes the request's one key, so window (or block) i convolves
 with the impulse response of row i % ``_RENDER_BS``.
@@ -29,6 +32,7 @@ assembled on the host around a render callable.
 
 from __future__ import annotations
 
+import collections
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -40,16 +44,20 @@ from diffmst_torch.ops.reverb import draw_reverb_noise, reverb_noise_shape
 from diffmst_torch.ops.stft import hann_window
 from diffmst_torch.utils.device import DeviceLike, resolve_device
 
-__all__ = ["run_diffmst", "overlap_add_render", "overlap_save_render"]
+__all__ = ["run_diffmst", "overlap_add_render", "overlap_save_render", "clear_track_cache"]
 
 # Windows per console call.
 _RENDER_BS = 4
 
 
-def _render_batched(render_window: Callable, wins: np.ndarray, device: torch.device) -> np.ndarray:
-    """Render (n, num_tracks, L) host windows in groups of ``_RENDER_BS``
-    (the last group padded with silent windows) on ``device``."""
-    bs = _RENDER_BS
+def _render_batched(
+    render_window: Callable, wins: np.ndarray, device: torch.device, render_bs: Optional[int] = None
+) -> np.ndarray:
+    """Render (n, num_tracks, L) host windows in groups of ``render_bs``
+    (None: ``_RENDER_BS``; the last group padded with silent windows) on
+    ``device``. An exported render has a fixed window batch: pass its
+    manifest's ``render_bs``."""
+    bs = _RENDER_BS if render_bs is None else render_bs
     outs = []
     for i in range(0, wins.shape[0], bs):
         group = wins[i : i + bs]
@@ -65,30 +73,34 @@ def overlap_add_render(
     render_window: Callable[[torch.Tensor], torch.Tensor],
     tracks: np.ndarray,
     window_len: int,
+    hop: Optional[int] = None,
+    render_bs: Optional[int] = None,
     device: DeviceLike = None,
 ) -> np.ndarray:
-    """Hann overlap-add render of a song at hop ``window_len // 2``,
-    assembled on the host.
+    """Hann overlap-add render of a song, assembled on the host.
 
     Args:
-      render_window: (bs, num_tracks, window_len) tensor on ``device`` ->
-        (bs, 2, window_len) mixes; ``_RENDER_BS`` windows a call.
+      render_window: (render_bs, num_tracks, window_len) tensor on
+        ``device`` -> (render_bs, 2, window_len) mixes.
       tracks: (1, num_tracks, total_len) normalized stems (host array).
       window_len: the window (the reference's: 262144).
+      hop: window start to window start; None means ``window_len // 2``.
+      render_bs: windows a call; None means ``_RENDER_BS``.
       device: where the windows go; None means the CUDA device.
 
     Returns:
       (1, 2, total_len) mix (host array).
     """
     dev = resolve_device(device)
-    hop = window_len // 2
+    if hop is None:
+        hop = window_len // 2
     total = tracks.shape[-1]
     starts = list(range(0, total, hop))
     wins = []
     for s in starts:
         w = tracks[0, :, s : s + window_len]
         wins.append(np.pad(w, ((0, 0), (0, window_len - w.shape[-1]))))
-    rendered = _render_batched(render_window, np.stack(wins), dev)
+    rendered = _render_batched(render_window, np.stack(wins), dev, render_bs)
 
     win = hann_window(window_len).astype(np.float32)
     first = np.concatenate([np.ones(window_len // 2, np.float32), win[window_len // 2 :]])
@@ -103,6 +115,7 @@ def overlap_save_render(
     tracks: np.ndarray,
     block_len: int,
     context_len: int = 65536,
+    render_bs: Optional[int] = None,
     device: DeviceLike = None,
 ) -> np.ndarray:
     """Streaming (overlap-save) render of a song, assembled on the host: each
@@ -111,12 +124,12 @@ def overlap_save_render(
     the causal EQ's have converged where the block starts.
 
     Args:
-      render_window: (bs, num_tracks, context_len + block_len) tensor on
-        ``device`` -> (bs, 2, context_len + block_len) mixes; ``_RENDER_BS``
-        windows a call.
+      render_window: (render_bs, num_tracks, context_len + block_len) tensor
+        on ``device`` -> (render_bs, 2, context_len + block_len) mixes.
       tracks: (1, num_tracks, total_len) normalized stems (host array).
       block_len: output samples per block.
       context_len: warm-up samples before each block.
+      render_bs: windows a call; None means ``_RENDER_BS``.
       device: where the windows go; None means the CUDA device.
 
     Returns:
@@ -132,7 +145,7 @@ def overlap_save_render(
         w = tracks[0, :, max(lo, 0) : s + block_len]
         pad_l = max(0, -lo)
         wins.append(np.pad(w, ((0, 0), (pad_l, win_len - w.shape[-1] - pad_l))))
-    rendered = _render_batched(render_window, np.stack(wins), dev)
+    rendered = _render_batched(render_window, np.stack(wins), dev, render_bs)
 
     out = np.zeros((1, 2, len(starts) * block_len), np.float32)
     for i, s in enumerate(starts):
@@ -160,6 +173,49 @@ def _gate(analysis_tracks: np.ndarray, sample_rate: float):
     if not keep:
         raise ValueError("all tracks gated out (< -80 LUFS)")
     return keep, gains, norm_analysis
+
+
+# Device copies of the last few songs' raw stems, least recently used first:
+# eval runs call run_diffmst once per (track section x reference section) of
+# the same stems, and every call after the first takes the song from here.
+_TRACK_CACHE_SONGS = 4
+_TRACK_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+# Songs copied to a device (cache misses) since import; tests and
+# chip_smoke.py read it.
+track_uploads = 0
+
+
+def _device_tracks(tracks: np.ndarray, pad_total: int, offset: int, dev: torch.device) -> torch.Tensor:
+    """(num_tracks, pad_total) float32 tensor on ``dev`` holding the (1,
+    num_tracks, total) host stems from ``offset`` (zeros elsewhere), cached.
+
+    The key is the host array's identity, its shape, ``pad_total``,
+    ``offset`` and the device, as JAX's ``_device_tracks`` with the device
+    added; the entry holds the host array, so a recycled ``id`` can never
+    alias another song. As in JAX, a host array edited in place between
+    calls is not seen: pass a new array, or call ``clear_track_cache``.
+    """
+    global track_uploads
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (id(tracks), tracks.shape, pad_total, offset, str(dev))
+    hit = _TRACK_CACHE.get(key)
+    if hit is not None and hit[0] is tracks:
+        _TRACK_CACHE.move_to_end(key)
+        return hit[1]
+    total = tracks.shape[-1]
+    padded = torch.zeros(tracks.shape[1], pad_total, device=dev)
+    padded[:, offset : offset + total] = torch.as_tensor(np.asarray(tracks[0], np.float32)).to(dev)
+    _TRACK_CACHE[key] = (tracks, padded)
+    track_uploads += 1
+    while len(_TRACK_CACHE) > _TRACK_CACHE_SONGS:
+        _TRACK_CACHE.popitem(last=False)
+    return padded
+
+
+def clear_track_cache() -> None:
+    """Drop every cached song from the devices."""
+    _TRACK_CACHE.clear()
 
 
 def _pcm16_trim(mix: torch.Tensor, total: int) -> torch.Tensor:
@@ -260,7 +316,10 @@ def run_diffmst(
     """Full-song mix style transfer.
 
     Args:
-      tracks: (1, num_tracks, total_len) raw mono stems (host array).
+      tracks: (1, num_tracks, total_len) raw mono stems (host array). The
+        song is uploaded once and cached on the device by the array's
+        identity (``_device_tracks``): a host array edited in place between
+        calls is not seen.
       ref: (1, 2, ref_len) stereo reference mix (host array).
       model_apply: (tracks, ref_mix) tensors -> (track_params, fx_params,
         master_params), e.g. a ``MixStyleTransferModel`` on ``device``.
@@ -321,8 +380,7 @@ def run_diffmst(
         n_windows = -(-n_windows // group_bs) * group_bs
         pad_total, offset = (n_windows + 1) * hop, 0
     with record_function("run_diffmst.upload"):
-        tracks_dev = torch.zeros(n_all, pad_total, device=dev)
-        tracks_dev[:, offset : offset + total] = torch.as_tensor(np.asarray(tracks[0], np.float32)).to(dev)
+        tracks_dev = _device_tracks(tracks, pad_total, offset, dev)
         gains_dev = torch.from_numpy(gains).to(dev)
         ref_dev = torch.as_tensor(np.asarray(analysis_ref, np.float32)).to(dev)
 

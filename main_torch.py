@@ -17,8 +17,12 @@ repository root: the configs' relative paths
 (``./data/instrument_name2id.json``) and the CSV log (``logs/metrics.csv``)
 are relative to the working directory.
 
-``export``, more than one device and ``trainer.fused_steps`` other than 1
-are not ported yet (ROADMAP Queue 1, item 12).
+``export`` writes the serving graph of the config's model and console
+(``diffmst_torch/utils/export.py``; ``--num_tracks``, ``--analysis_len``,
+``--render_bs``, the weights from ``--ckpt_path``) into ``--output``, by
+default ``serving_export``. More than one device and
+``trainer.fused_steps`` other than 1 are not ported yet (ROADMAP Queue 1,
+item 12).
 """
 
 from __future__ import annotations
@@ -53,16 +57,8 @@ def build_from_config(cfg: dict, device=None):
     trainer_cfg = dict(cfg.get("trainer", {}))
     _check_ported(trainer_cfg, dev)
 
-    model_cfg = cfg.get("model", {})
-    init_args = dict(model_cfg.get("init_args", model_cfg))
     clock.lap("imports")
-    with torch.device("meta"):
-        model = instantiate(init_args.pop("model"))
-    model = model.to_empty(device=dev)
-    clock.lap("model allocated", dev)
-    model = model.init(torch.Generator().manual_seed(seed)).eval()
-    clock.lap("model init", dev)
-    mix_console = instantiate(init_args.pop("mix_console"), device=str(dev))
+    model, mix_console, init_args = _build_model(cfg, dev, seed, clock)
     loss = instantiate(init_args.pop("loss"))
     mix_fn = instantiate(init_args.pop("mix_fn", "mst.mixing.naive_random_mix"))
     clock.lap("console and loss", dev)
@@ -108,6 +104,24 @@ def build_from_config(cfg: dict, device=None):
     print(f"built: {n_params / 1e6:.1f} M parameters in {clock.total():.3f} s ({clock.laps()})",
           flush=True)
     return system, datamodule, trainer
+
+
+def _build_model(cfg: dict, dev: torch.device, seed: int, clock: "_Clock"):
+    """(model, console, the model section's other init_args) from a merged
+    config: the model allocated once on ``dev`` and initialized from a CPU
+    generator seeded ``seed``, in eval mode."""
+    from diffmst_torch.utils.config import instantiate
+
+    model_cfg = cfg.get("model", {})
+    init_args = dict(model_cfg.get("init_args", model_cfg))
+    with torch.device("meta"):
+        model = instantiate(init_args.pop("model"))
+    model = model.to_empty(device=dev)
+    clock.lap("model allocated", dev)
+    model = model.init(torch.Generator().manual_seed(seed)).eval()
+    clock.lap("model init", dev)
+    mix_console = instantiate(init_args.pop("mix_console"), device=str(dev))
+    return model, mix_console, init_args
 
 
 class _Clock:
@@ -157,15 +171,24 @@ def main(argv=None):
         "-c", "--config", action="append", required=True,
         help="YAML config (repeatable; later files overlay earlier)",
     )
-    parser.add_argument("--ckpt_path", default=None, help="resume checkpoint")
+    parser.add_argument("--ckpt_path", default=None,
+                        help="resume checkpoint; predict and export: the weights")
     parser.add_argument(
         "--device", default=None,
         help="torch device to run on (default: the CUDA device; 'cpu' to run on the CPU)",
     )
+    # export: the serving graph (diffmst_torch/utils/export.py)
+    parser.add_argument("--num_tracks", type=int, default=8,
+                        help="export: static track count of the serving graph")
+    parser.add_argument("--analysis_len", type=int, default=262144,
+                        help="export: analysis and render window in samples")
+    parser.add_argument("--render_bs", type=int, default=8,
+                        help="export: windows a call of the serving render graph")
     # predict: full-song style transfer over a stem directory
     parser.add_argument("--track_dir", default=None, help="predict: stem dir")
     parser.add_argument("--ref", default=None, help="predict: reference mix wav")
-    parser.add_argument("--output", default="pred_mix.wav", help="predict: output wav")
+    parser.add_argument("--output", default="pred_mix.wav",
+                        help="predict: output wav; export: output directory (default serving_export)")
     parser.add_argument(
         "--render_mode", default="ola", choices=["ola", "streaming"],
         help="predict: OLA (reference) or seam-free streaming rendering",
@@ -175,10 +198,6 @@ def main(argv=None):
     from diffmst_torch.utils.config import load_config
     from diffmst_torch.utils.device import resolve_device, use_full_float32
 
-    if args.command == "export":
-        raise NotImplementedError(
-            "export is not ported to diffmst_torch yet: ROADMAP Queue 1, item 12"
-        )
     dev = resolve_device(args.device)
     use_full_float32()
     cfg = load_config(args.config)
@@ -188,6 +207,8 @@ def main(argv=None):
               flush=True)
     else:
         print(f"device: {dev}", flush=True)
+    if args.command == "export":
+        return _export(cfg, dev, args)
     system, datamodule, trainer = build_from_config(cfg, dev)
 
     if args.command == "predict":
@@ -208,12 +229,49 @@ def main(argv=None):
     return result
 
 
+def _load_weights(model, ckpt_path) -> None:
+    """``ckpt_path`` into ``model``: a reference Lightning ``.ckpt``, or a
+    checkpoint of ``fit``; with none, the seeded random weights stay."""
+    from diffmst_torch.utils.checkpoint import load_reference_checkpoint, restore_model
+
+    if ckpt_path and ckpt_path.endswith(".ckpt"):
+        load_reference_checkpoint(ckpt_path, model)
+    elif ckpt_path:
+        t0 = time.perf_counter()
+        restore_model(ckpt_path, model)
+        print(f"checkpoint: restored {ckpt_path} in {time.perf_counter() - t0:.3f} s", flush=True)
+    else:
+        print("warning: no --ckpt_path; using random init")
+
+
+def _export(cfg: dict, dev: torch.device, args):
+    """Export the serving graph of the config's model and console, with the
+    weights of ``--ckpt_path``, into ``--output`` (default
+    ``serving_export``): the counterpart of ``main.py export``."""
+    from diffmst_torch.utils.export import save_inference_export
+
+    clock = _Clock()
+    model, mix_console, _ = _build_model(cfg, dev, cfg.get("seed_everything", 42), clock)
+    _load_weights(model, args.ckpt_path)
+    built_s = clock.total()
+    out_dir = args.output if args.output != "pred_mix.wav" else "serving_export"
+    t0 = time.perf_counter()
+    manifest = save_inference_export(
+        out_dir, model, mix_console, num_tracks=args.num_tracks,
+        analysis_len=args.analysis_len, render_bs=args.render_bs,
+    )
+    seconds = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(out_dir, f)) for f in os.listdir(out_dir))
+    print(f"export: wrote {out_dir} ({manifest['device']}, {size} bytes) in {seconds:.3f} s;"
+          f" the model built and its weights loaded in {built_s:.3f} s", flush=True)
+    return manifest
+
+
 def _predict(system, args):
     """Full-song inference with the config's model and console, the weights
     from ``--ckpt_path`` (a checkpoint of ``fit``, or a reference Lightning
     ``.ckpt``), else the seeded random ones."""
     from diffmst_torch.data import read_audio, write_audio
-    from diffmst_torch.utils.checkpoint import load_reference_checkpoint, restore_model
     from diffmst_torch.utils.inference import run_diffmst
 
     if not args.track_dir or not args.ref:
@@ -231,14 +289,7 @@ def _predict(system, args):
     ref, _ = read_audio(args.ref)
 
     model = system.model
-    if args.ckpt_path and args.ckpt_path.endswith(".ckpt"):
-        load_reference_checkpoint(args.ckpt_path, model)
-    elif args.ckpt_path:
-        t0 = time.perf_counter()
-        restore_model(args.ckpt_path, model)
-        print(f"checkpoint: restored {args.ckpt_path} in {time.perf_counter() - t0:.3f} s", flush=True)
-    else:
-        print("warning: no --ckpt_path; using random init")
+    _load_weights(model, args.ckpt_path)
 
     @torch.no_grad()
     def apply(t, r):

@@ -16,8 +16,8 @@
     with an overlay of paths and sizes (embed 32, n_fft 2048, hop 128, Cnn14
     width 4, 1 layer, 4 heads, MRSTFT at 512, length 32,768), in full
     float32 (TF32 off), and without ``--device`` (no card here): an error;
-  * what the port lacks (``export``, more than one device,
-    ``fused_steps`` other than 1) refused, naming its ROADMAP item;
+  * what the port lacks (more than one device, ``fused_steps`` other than
+    1) refused, naming its ROADMAP item;
   * the config registry's class paths, ``System``'s flat keywords and the
     CSV sink against the JAX package's.
 
@@ -324,12 +324,13 @@ def test_cli_fit_resume_validate_test_predict(tmp_path, corpus, monkeypatch, cap
 
 
 def test_cli_runs_on_the_card_unless_told(tmp_path, corpus):  # noqa: F811
-    """No card here: without --device the CLI raises before building."""
+    """No card here: without --device the CLI raises before building, for
+    ``fit`` and for ``export`` (ported since; tests/test_torch_export.py
+    runs it with ``--device cpu``)."""
     cfg = _overlay(tmp_path / "small.yaml", corpus)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        main_torch.main(["fit", *cfg])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main_torch.main(["export", *cfg, "--device", "cpu"])
+    for command in ("fit", "export"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main_torch.main([command, *cfg])
 
 
 @pytest.mark.parametrize("trainer", [{"devices": 2}, {"mesh": {"data": 2}}, {"fused_steps": 2}],
