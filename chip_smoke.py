@@ -88,7 +88,17 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      loads the export without the model's code and serves a song with
      ``run_exported`` (6 K2 launches traced, against ``run_diffmst``'s
      mix), then ``scripts/eval_listen_torch.py`` and ``scripts/
-     run_torch.py``.
+     run_torch.py``;
+ 16. tpu-recipe: ``configs/models/naive+tpu.yaml`` at full width (bf16
+     compute, Adam's first moment in bf16) built through
+     ``main_torch.build_from_config``: the dtypes, the bf16 model against
+     its float32 twin (0.05), one step's console cotangents through K2 and
+     K2-bwd against the plain versions, 3 timed steps, a step each with
+     encoder remat and the first two Cnn14 blocks' remat (the running
+     statistics against a plain step's), a flattened-optimizer update
+     against the per-leaf one, a 60 s request with the bf16 model, and
+     ``main_torch.py fit`` and a resume on the recipe over [cli]'s corpus
+     (subprocesses; the checkpoint's first moment bf16).
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -1173,14 +1183,16 @@ def phase_training():
     return system, batch, flags, launches, 1.0 / per_step
 
 
-def phase_train_profile(system, batch, flags):
+def phase_train_profile(system, batch, flags, tag="train-profile"):
     """One more K2 step under torch.profiler. CUDA events recorded by hooks
     on the rendered mix and on the predicted parameters split the backward
-    into the loss's, the console's and the model's."""
+    into the loss's, the console's and the model's. Returns its K2 and
+    K2-bwd launches."""
     from torch.profiler import ProfilerActivity, profile
 
     ev = {k: torch.cuda.Event(enable_timing=True)
           for k in ("start", "bwd", "loss", "track", "master", "end", "opt")}
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1200,23 +1212,25 @@ def phase_train_profile(system, batch, flags):
         ev["opt"].record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counts = read_counts()
     require(np.isfinite(float(loss.detach())), "profiled step loss finite")
     el = lambda a, b: ev[a].elapsed_time(ev[b])  # noqa: E731
     console_end = "track" if el("track", "master") < 0 else "master"
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages() if e.device_type == cuda and not e.key.startswith("system.")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    line(f"[train-profile] one step traced: {wall:.3f} s wall, {busy_ms:.1f} ms of kernels and copies"
+    line(f"[{tag}] one step traced: {wall:.3f} s wall, {busy_ms:.1f} ms of kernels and copies"
          f" on the card ({100.0 * busy_ms / (wall * 1e3):.1f}% busy)")
     for e in prof.events():
         if e.name.startswith("system.") and e.device_type != cuda:
-            line(f"[train-profile] {e.name:18s} host {e.cpu_time_total / 1e3:8.1f} ms,"
+            line(f"[{tag}] {e.name:18s} host {e.cpu_time_total / 1e3:8.1f} ms,"
                  f" card {e.device_time_total / 1e3:8.1f} ms")
-    line(f"[train-profile] backward split by CUDA events: loss {el('bwd', 'loss'):.1f} ms,"
+    line(f"[{tag}] backward split by CUDA events: loss {el('bwd', 'loss'):.1f} ms,"
          f" console {el('loss', console_end):.1f} ms, model {el(console_end, 'end'):.1f} ms;"
          f" forward {el('start', 'bwd'):.1f} ms, optimizer {el('end', 'opt'):.1f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        line(f"[train-profile] {e.self_device_time_total / 1e3:8.2f} ms {e.count:5d}x {e.key[:70]}")
+        line(f"[{tag}] {e.self_device_time_total / 1e3:8.2f} ms {e.count:5d}x {e.key[:70]}")
+    return counts
 
 
 @contextlib.contextmanager
@@ -2224,6 +2238,294 @@ def phase_eval(root: pathlib.Path, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------- the TPU recipe
+
+TPU_CONFIGS = ("configs/config.yaml", "configs/optimizer.yaml", "configs/models/naive+tpu.yaml")
+RECIPE_BF16_TOL = 0.05  # tests/test_models.py::test_bf16_compute_close_to_f32
+
+
+def _recipe_step(system, batch, flags, ref_params):
+    """One timed train step; returns (wall s, peak bytes, launches)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = system.train_step(batch, flags, ref_params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    require(np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), "recipe step finite")
+    return wall, torch.cuda.max_memory_allocated(), counts
+
+
+def _running_stats(model) -> dict:
+    return {k: v.clone() for k, v in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+
+
+def phase_tpu_recipe(root: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """``configs/models/naive+tpu.yaml`` (bf16 compute, no remat, Cnn14 at
+    its reference widths, Adam's first moment in bf16) at full width: (a)
+    its System through ``main_torch.build_from_config`` and the dtypes; (b)
+    the bf16 model against its float32 twin on the same weights; (c) the
+    console's cotangents through K2 and K2-bwd against the plain versions,
+    then 3 timed steps; (d) a step each with ``remat_encoders`` and
+    ``remat_blocks=2``, the running statistics against a plain step's; (e)
+    a ``flatten_optimizer`` update against the per-leaf one from the same
+    state; (f) a 60 s, 8-track "ola" request with the bf16 model against
+    the float32 one; (g) ``main_torch.py fit`` and a resume over [cli]'s
+    corpus, subprocesses. Returns the phase's kernel launches."""
+    import dataclasses
+
+    import main_torch
+    from diffmst_torch.mixing import naive_random_mix
+    from diffmst_torch.mixing.naive import draw_mix_params
+    from diffmst_torch.models import MixStyleTransferModel
+    from diffmst_torch.train import System
+    from diffmst_torch.train.system import OptaxAdam, _global_norm
+    from diffmst_torch.utils.config import load_config
+    from diffmst_torch.utils.inference import run_diffmst
+
+    phase_t0 = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) the recipe's System, as main_torch.py fit builds it
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.chdir(root):
+        system, _, _ = main_torch.build_from_config(load_config([str(root / c) for c in TPU_CONFIGS]))
+    model, console = system.model, system.mix_console
+    built = out.getvalue().strip().splitlines()[-1]
+    enc = model.track_encoder
+    n_params = sum(p.numel() for p in model.parameters())
+    require(enc.model.dtype == torch.bfloat16 and model.controller.transformer_encoder.layers[0].dtype
+            == torch.bfloat16, "naive+tpu.yaml computes in bf16")
+    require(not enc.remat and enc.model.remat_blocks == 0 and enc.model.conv_block1.conv1.out_channels == 64,
+            "naive+tpu.yaml: no remat, Cnn14's reference widths")
+    require(isinstance(system.optimizer, OptaxAdam) and system.optimizer_layout == "per-leaf, mu bfloat16",
+            f"naive+tpu.yaml's optimizer ({system.optimizer_layout})")
+    state_dtypes = {v.dtype for k, v in model.state_dict().items() if not k.endswith("num_batches_tracked")}
+    require(state_dtypes == {torch.float32}, f"parameters and BatchNorm statistics float32 ({state_dtypes})")
+    line(f"[tpu-recipe] (a) {built}; {n_params / 1e6:.1f} M parameters, compute bf16, optimizer"
+         f" {system.optimizer_layout}; parameters and BatchNorm statistics {sorted(map(str, state_dtypes))}")
+
+    batch = synth_batch(11)
+    batch = type(batch)(*(t.cuda() for t in batch))
+    flags = system.effect_flags(0)
+    ref_params = draw_mix_params(batch.tracks, console, torch.Generator().manual_seed(2))
+
+    # (b) bf16 against float32 on the same weights, eval mode
+    twin = MixStyleTransferModel.build(generator=torch.Generator().manual_seed(0))
+    twin.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        _, outputs = system.eval_step(batch, flags, ref_params)
+        tracks_b = batch.tracks[..., HALF:]
+        p16 = model(tracks_b, outputs["ref_mix_a"], batch.track_padding)
+        p32 = twin(tracks_b, outputs["ref_mix_a"], batch.track_padding)
+    dev = {name: float((a - b).abs().max()) for name, a, b in zip(("track", "fx", "master"), p16, p32)}
+    require(all(a.dtype == torch.float32 for a in p16), "the bf16 model's outputs are float32")
+    line(f"[tpu-recipe] (b) bf16 vs float32 on the same weights and batch, eval mode: predicted parameters"
+         f" max-abs {', '.join(f'{k} {v:.3g}' for k, v in dev.items())} (gate {RECIPE_BF16_TOL})")
+    require(max(dev.values()) <= RECIPE_BF16_TOL, f"bf16 within {RECIPE_BF16_TOL} of float32 ({dev})")
+
+    # (c) the console's cotangents through the kernels and the plain
+    # versions, at the same weights, statistics and reference mix (rendered
+    # once, through K2: the bf16 model turns the two renders' 1e-9
+    # difference into 1e-3 of the loss), cuDNN deterministic; then three
+    # timed steps
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    ref_once = {}
+
+    def fixed_reference(tracks, console_, generator, **kw):
+        if "ref" not in ref_once:
+            ref_once["ref"] = naive_random_mix(tracks, console_, generator, **kw)
+        return ref_once["ref"]
+
+    def grad_pass():
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(stats[k])
+        for p in system.params:
+            p.grad = None
+        loss, _, out = system.forward(batch, flags, True, ref_params)
+        cot = {}
+        pred_track, _, pred_master = out["pred_params"]
+        pred_track.register_hook(lambda g: cot.__setitem__("track", g.detach().clone()))
+        pred_master.register_hook(lambda g: cot.__setitem__("master", g.detach().clone()))
+        system.backward(loss)
+        return float(loss.detach()), cot, [p.grad.clone() for p in system.params]
+
+    torch.backends.cudnn.deterministic = True
+    system.mix_fn = fixed_reference
+    reset_counts()
+    loss_k, cot_k, g_k = grad_pass()
+    kernel_counts = read_counts()
+    with plain_versions():
+        reset_counts()
+        loss_p, cot_p, g_p = grad_pass()
+        plain_counts = read_counts()
+    torch.backends.cudnn.deterministic = False
+    system.mix_fn = naive_random_mix
+    del ref_once
+
+    def rel(a, b):
+        return float(torch.sqrt(sum(((x.double() - y.double()) ** 2).sum() for x, y in zip(a, b)))
+                     / torch.sqrt(sum((y.double() ** 2).sum() for y in b)))
+
+    cot_rel = {k: rel([cot_k[k]], [cot_p[k]]) for k in ("track", "master")}
+    grad_rel = rel(g_k, g_p)
+    del g_k, g_p
+    line(f"[tpu-recipe] (c) one step's gradients through K2 and K2-bwd vs the plain versions on the card:"
+         f" loss {loss_k:.7f} vs {loss_p:.7f}; the console's cotangents at the predicted parameters, of"
+         f" their norm: {', '.join(f'{k} {v:.3g}' for k, v in cot_rel.items())}; the model's gradients"
+         f" {grad_rel:.3g} of their norm; launches {kernel_counts} (plain pass {plain_counts})")
+    require(kernel_counts["K2"] == 4 and kernel_counts["K2-bwd"] == 2, f"the kernel pass: K2 4, K2-bwd 2 ({kernel_counts})")
+    require(not any(plain_counts.values()), f"the plain pass launched no kernel ({plain_counts})")
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "kernel and plain losses agree")
+    require(max(cot_rel.values()) <= 2e-2, f"kernel and plain cotangents agree ({cot_rel})")
+
+    walls, peaks = [], []
+    for step in range(TRAIN_STEPS):
+        wall, peak, counts = _recipe_step(system, batch, flags, None)
+        walls.append(wall)
+        peaks.append(peak)
+        add(counts)
+        require(counts["K2"] == 4 and counts["K2-bwd"] == 2 and counts["K1"] == counts["K1-bwd"] == 0,
+                f"recipe step {step + 1}: 4 K2 and 2 K2-bwd launches ({counts})")
+        line(f"[tpu-recipe] (c) step {step + 1}: {wall:.3f} s, peak {peak / 2**30:.2f} GiB, launches {counts}")
+    opt = system.optimizer
+    require({m.dtype for m in opt.mu} == {torch.bfloat16} and {v.dtype for v in opt.nu} == {torch.float32},
+            "after the steps Adam's mu is bf16 and nu float32")
+    per_step = sum(walls[1:]) / (len(walls) - 1)
+    audio_s = TRAIN_BS * WINDOW / SR
+    line(f"[tpu-recipe] (c) steps 2-{TRAIN_STEPS}: {1.0 / per_step:.3f} steps/s ({per_step:.3f} s a step,"
+         f" {audio_s / per_step:.1f} s of audio a second); step 1 {walls[0]:.3f} s; peak memory"
+         f" {max(peaks) / 2**30:.2f} GiB (max_memory_allocated); Adam mu bf16, nu float32")
+    add(phase_train_profile(system, batch, flags, tag="tpu-recipe (c) profile"))
+
+    # (d) remat: a step each from the same state, the running statistics
+    # against a plain step's (cuDNN deterministic)
+    snap = {k: v.clone() for k, v in model.state_dict().items()}
+    stats0 = _running_stats(model)
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for name, (whole, blocks) in (("plain", (False, 0)), ("remat_encoders", (True, 0)),
+                                  ("remat_blocks=2", (False, 2))):
+        model.load_state_dict(snap)
+        for e in (model.track_encoder, model.mix_encoder):
+            e.remat, e.model.remat_blocks = whole, blocks
+        wall, peak, counts = _recipe_step(system, batch, flags, ref_params)
+        add(counts)
+        runs[name] = (wall, peak, _running_stats(model))
+    for e in (model.track_encoder, model.mix_encoder):
+        e.remat, e.model.remat_blocks = False, 0
+    torch.backends.cudnn.deterministic = False
+    plain_stats = runs["plain"][2]
+    moved = max(float((plain_stats[k] - stats0[k]).abs().max()) for k in stats0)
+    for name in ("remat_encoders", "remat_blocks=2"):
+        wall, peak, st = runs[name]
+        diff = max(float((st[k] - plain_stats[k]).abs().max()) for k in st)
+        line(f"[tpu-recipe] (d) {name}: {wall:.3f} s, peak {peak / 2**30:.2f} GiB (plain step"
+             f" {runs['plain'][0]:.3f} s, {runs['plain'][1] / 2**30:.2f} GiB, deterministic cuDNN);"
+             f" running statistics vs the plain step's: max-abs {diff:.3g} (the step moved them by {moved:.3g})")
+        require(moved > 0 and diff <= 1e-6 * max(moved, 1.0), f"{name}: the running statistics updated once ({diff})")
+
+    # (e) flatten_optimizer: one update from the same state and gradients
+    model.load_state_dict(snap)
+    del snap
+    system.gradients(batch, flags, ref_params)
+    grads = [p.grad.clone() for p in system.params]
+    flat = System(model, console, system.loss, dataclasses.replace(system.config, flatten_optimizer=True),
+                  device=system.device)
+    flat.updates = system.updates  # the same learning rate
+    with torch.no_grad():
+        flat.optimizer.mu[0].copy_(torch.cat([m.reshape(-1) for m in opt.mu]))
+        flat.optimizer.nu[0].copy_(torch.cat([v.reshape(-1) for v in opt.nu]))
+        flat.optimizer.count = opt.count
+        before = [p.detach().clone() for p in system.params]
+        timings = {}
+        for name, s in (("per-leaf", system), ("flat", flat)):
+            for p, b, g in zip(system.params, before, grads):
+                p.copy_(b)
+                p.grad = g.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.apply_gradients(_global_norm([p.grad for p in system.params]))
+            torch.cuda.synchronize()
+            timings[name] = (time.perf_counter() - t0, [p.detach().clone() for p in system.params])
+    leaf_p, flat_p = timings["per-leaf"][1], timings["flat"][1]
+    flat_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(flat_p, leaf_p))
+    moved_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(leaf_p, before))
+    line(f"[tpu-recipe] (e) flatten_optimizer from the same state and gradients: parameters within"
+         f" {flat_rel:.3g} of the per-leaf update's (worst leaf, of its max-abs; the update moved them by up to"
+         f" {moved_rel:.3g}); the optimizer {timings['flat'][0] * 1e3:.1f} ms flat,"
+         f" {timings['per-leaf'][0] * 1e3:.1f} ms per leaf; flat mu {tuple(flat.optimizer.mu[0].shape)}"
+         f" {flat.optimizer.mu[0].dtype}")
+    require(moved_rel > 0 and flat_rel <= 1e-6, f"the flat update agrees with the per-leaf one ({flat_rel})")
+    del flat, grads, before, timings, leaf_p, flat_p
+    for p in system.params:
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    # (f) a 60 s, 8-track request with the bf16 model and the float32 twin
+    twin.load_state_dict(model.state_dict())
+    tracks, ref = synth_song(21, N_TRACKS, SONG_S, quiet_track=N_TRACKS - 1)
+    mixes = {}
+    for name, m in (("float32 cold", twin), ("bf16", model), ("float32", twin), ("bf16 again", model)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mix, _, _, _ = run_diffmst(tracks, ref, m, console)
+        torch.cuda.synchronize()
+        mixes[name] = (mix, time.perf_counter() - t0, read_counts())
+    add(mixes["bf16"][2])
+    peak = float(np.abs(mixes["float32"][0]).max())
+    mix_dev = float(np.abs(mixes["bf16"][0] - mixes["float32"][0]).max()) / peak
+    line(f"[tpu-recipe] (f) a {SONG_S:.0f} s, {N_TRACKS}-track request (\"ola\"), the song uploaded by the"
+         f" first: float32 {', '.join(f'{SONG_S / mixes[k][1]:.1f}x' for k in ('float32 cold', 'float32'))},"
+         f" bf16 {', '.join(f'{SONG_S / mixes[k][1]:.1f}x' for k in ('bf16', 'bf16 again'))} realtime; the bf16"
+         f" mix {mix_dev:.3g} of the peak from the float32 one; launches {mixes['bf16'][2]}")
+    require(np.isfinite(mixes["bf16"][0]).all() and mixes["bf16"][2]["K2"] > 0, "the bf16 request: finite, via K2")
+    del model, twin, system, opt, enc, outputs, p16, p32
+    torch.cuda.empty_cache()
+
+    # (g) main_torch.py fit and a resume over [cli]'s corpus, subprocesses
+    import yaml
+
+    corpus, ckpts = tmp / "corpus", tmp / "tpu_ckpts"
+    data = {"track_root_dirs": [str(corpus)], "metadata_files": [str(corpus / "meta.yaml")],
+            "num_examples_per_pass": 12, "num_train_passes": 1}
+    argv = {}
+    for name, epochs in (("fit", 1), ("resume", 2)):
+        p = tmp / f"tpu_{name}.yaml"
+        p.write_text(yaml.safe_dump({"trainer": {"max_epochs": epochs, "log_every_n_steps": 1,
+                                                 "num_sanity_val_steps": 0, "default_root_dir": str(ckpts)},
+                                     "data": {"init_args": data}}))
+        configs = [*(str(root / c) for c in TPU_CONFIGS[:2]), str(root / "configs/data/synthetic-8.yaml"),
+                   str(root / TPU_CONFIGS[2]), str(p)]
+        argv[name] = ["main_torch.py", "fit", *(a for c in configs for a in ("-c", c))]
+    argv["resume"] += ["--ckpt_path", str(ckpts / "last")]
+    for name in ("fit", "resume"):
+        out, wall = _run_cli(root, argv[name], f"main_torch.py fit on naive+tpu.yaml ({name})")
+        n = _cli_numbers(out)
+        state = torch.load(ckpts / "last", map_location="cpu", weights_only=True, mmap=True)
+        layout, mu = state["optimizer_layout"], state["optimizer"]["mu"]
+        line(f"[tpu-recipe] (g) main_torch.py fit ({name}): exit 0 in {wall:.1f} s; [train] steps/s"
+             f" {n['steps_per_sec']} (epochs {n['train_epochs']}); losses {n['losses']}; checkpoints"
+             f" {n['saved']} (bytes, s); peak card memory {n['peak']} bytes; the checkpoint's optimizer"
+             f" {layout}, step {state['step']}")
+        require(len(n["steps_per_sec"]) == 3 and all(np.isfinite(x) for x in n["losses"]),
+                f"{name}: three logged steps, losses finite ({n})")
+        require(layout == "per-leaf, mu bfloat16" and {m.dtype for m in mu} == {torch.bfloat16},
+                f"{name}: the checkpoint's mu is bf16 ({layout})")
+        require(state["step"] == (3 if name == "fit" else 6), f"{name}: the checkpoint's step ({state['step']})")
+        del state, mu
+    line(f"[tpu-recipe] the phase: {time.perf_counter() - phase_t0:.1f} s; launches {launches}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, k, **extra):
     """The kernel's entry of the JSON line, with the achieved TB/s of the
     bytes its function must move; the kernel launches and memsets a call,
@@ -2270,6 +2572,8 @@ def main() -> int:
         param_est = phase_param_est(root, tmp)
         torch.cuda.empty_cache()
         evaluation = phase_eval(root, tmp)
+        torch.cuda.empty_cache()
+        recipe = phase_tpu_recipe(root, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2285,15 +2589,16 @@ def main() -> int:
         """Launches: the serving requests (K2's three, K1's "scan" render,
         the three streaming ones), the training steps (four, then two
         causal ones), the CLI's steps, [feature-loss]'s steps and fx-bus
-        requests, [param-est]'s remixes, and [eval]'s requests, online
-        iterations and exported requests."""
+        requests, [param-est]'s remixes, [eval]'s requests, online
+        iterations and exported requests, and [tpu-recipe]'s steps and
+        bf16 request."""
         total = (serving[key] + training[key] + cli[key] + feature.get(key, 0) + param_est.get(key, 0)
-                 + evaluation.get(key, 0))
+                 + evaluation.get(key, 0) + recipe.get(key, 0))
         return kernel_entry(name, source, replaces, total, stats[name],
                             launches_serving=serving[key], launches_training=training[key],
                             launches_cli=cli[key], launches_feature_loss=feature.get(key, 0),
                             launches_param_est=param_est.get(key, 0), launches_eval=evaluation.get(key, 0),
-                            on_path=True, **extra)
+                            launches_tpu_recipe=recipe.get(key, 0), on_path=True, **extra)
 
     kernels = [
         entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),

@@ -2,7 +2,7 @@
 
 from diffmst_torch.models.cnn14 import Cnn14, ConvBlock
 from diffmst_torch.models.controller import TransformerController
-from diffmst_torch.models.encoders import SpectrogramEncoder
+from diffmst_torch.models.encoders import PositionalEncoding, SpectrogramEncoder, WaveformTransformerEncoder
 from diffmst_torch.models.fx_encoder import FXencoder, ParameterProjector, default_fx_encoder_config
 from diffmst_torch.models.hdemucs import (
     HDEMUCS_SOURCES,
@@ -26,6 +26,8 @@ __all__ = [
     "ConvBlock",
     "TransformerController",
     "SpectrogramEncoder",
+    "WaveformTransformerEncoder",
+    "PositionalEncoding",
     "FXencoder",
     "ParameterProjector",
     "default_fx_encoder_config",

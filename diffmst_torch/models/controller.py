@@ -5,6 +5,12 @@ to the track and mix tokens, learned fx-bus and master-bus tokens appended,
 a post-norm transformer encoder over the num_tracks + 4 tokens, and sigmoid
 heads for the three parameter groups. The padding mask is extended by the 4
 always-attended tokens.
+
+``dtype`` is the transformer's compute dtype; the tokens, the residual
+stream and the three heads stay in the parameters' dtype, so the console
+receives float32 parameters from a float32 model whatever the dtype (``diffmst_tpu/models/
+controller.py:84-99``). ``use_fx_bus`` and ``use_master_bus`` are taken for
+config parity and read nowhere, as in JAX and the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ class TransformerController(nn.Module):
         num_master_bus_control_params: int,
         num_layers: int = 6,
         nhead: int = 8,
+        use_fx_bus: bool = False,
+        use_master_bus: bool = False,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         d = embed_dim
@@ -35,7 +44,7 @@ class TransformerController(nn.Module):
         self.mix_embedding = nn.Parameter(torch.empty(1, 2, d))
         self.fx_bus_embedding = nn.Parameter(torch.empty(1, 1, d))
         self.master_bus_embedding = nn.Parameter(torch.empty(1, 1, d))
-        self.transformer_encoder = TransformerEncoder(d, nhead, num_layers)
+        self.transformer_encoder = TransformerEncoder(d, nhead, num_layers, dtype=dtype)
         self.track_projection = nn.Linear(d, num_track_control_params)
         self.fx_bus_projection = nn.Linear(d, num_fx_bus_control_params)
         self.master_bus_projection = nn.Linear(d, num_master_bus_control_params)

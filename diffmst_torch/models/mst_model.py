@@ -7,20 +7,30 @@ reference's, so its state-dict keys are ``track_encoder.model.conv_block1
 .conv1.weight``, ``controller.transformer_encoder.layers.0.self_attn
 .in_proj_weight``, ... (a reference checkpoint loads after stripping its
 ``model.`` prefix).
+
+``build`` takes the JAX package's compute options (``diffmst_tpu/models/
+mst_model.py:92-166``): ``compute_dtype`` (the encoders' Cnn14 and the
+controller's transformer compute in it; the parameters, the BatchNorm
+statistics, the heads and the outputs stay float32), ``remat_encoders``
+(each encoder recomputed whole in the backward pass), ``remat_blocks``
+(only the first N Cnn14 blocks), ``cnn_min_width`` and ``crop_nyquist_bin``.
+``bn_axis_name`` (BatchNorm statistics across a device mesh) waits for the
+mesh (ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from diffmst_torch.models.cnn14 import Cnn14
 from diffmst_torch.models.controller import TransformerController
-from diffmst_torch.models.encoders import SpectrogramEncoder
+from diffmst_torch.models.encoders import SpectrogramEncoder, WaveformTransformerEncoder
 from diffmst_torch.models.transformer import _SelfAttention
+from diffmst_torch.utils.config import NotPortedError
 from diffmst_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = ["MixStyleTransferModel"]
@@ -29,8 +39,8 @@ __all__ = ["MixStyleTransferModel"]
 class MixStyleTransferModel(nn.Module):
     def __init__(
         self,
-        track_encoder: SpectrogramEncoder,
-        mix_encoder: SpectrogramEncoder,
+        track_encoder: nn.Module,
+        mix_encoder: nn.Module,
         controller: TransformerController,
         sum_and_diff: bool = False,
     ):
@@ -80,8 +90,8 @@ class MixStyleTransferModel(nn.Module):
 
         The Flax model's initializers: Xavier-uniform convolutions and Cnn14
         heads, LeCun-normal (truncated) transformer and head matrices, zero
-        biases, unit norms, N(0, 1) tokens, zero-mean unit-variance BatchNorm
-        statistics.
+        biases, unit norms, N(0, 1) tokens (and a waveform encoder's CLS
+        block), zero-mean unit-variance BatchNorm statistics.
         """
 
         def fill(t: torch.Tensor, draw) -> None:
@@ -122,6 +132,8 @@ class MixStyleTransferModel(nn.Module):
                 for tok in (m.track_embedding, m.mix_embedding, m.fx_bus_embedding,
                             m.master_bus_embedding):
                     fill(tok, lambda c: c.normal_(generator=generator))
+            elif isinstance(m, WaveformTransformerEncoder):
+                fill(m.cls, lambda c: c.normal_(generator=generator))
         return self
 
     @staticmethod
@@ -136,18 +148,38 @@ class MixStyleTransferModel(nn.Module):
         num_master_bus_control_params: int = 26,
         sum_and_diff: bool = False,
         cnn_base_width: int = 64,
+        cnn_min_width: int = 0,
+        crop_nyquist_bin: bool = False,
+        compute_dtype: Optional[Union[str, torch.dtype]] = None,
+        remat_encoders: bool = False,
+        remat_blocks: int = 0,
+        bn_axis_name: Optional[str] = None,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ) -> "MixStyleTransferModel":
         """The shipped configuration (configs/models/naive.yaml), in eval
         mode on ``device`` (None: the CUDA device), initialized from
-        ``generator`` (default: a CPU generator seeded 0)."""
+        ``generator`` (default: a CPU generator seeded 0). On the ``"meta"``
+        device it is returned uninitialized, for a caller that allocates
+        and initializes it (``main_torch.py``). ``compute_dtype`` is a dtype
+        or its name (``"bfloat16"``); the compute options are described in
+        the module docstring."""
+        if bn_axis_name is not None:
+            raise NotPortedError(
+                "bn_axis_name (BatchNorm statistics across a device mesh) is not ported to "
+                "diffmst_torch yet: ROADMAP Queue 1, item 12"
+            )
+        if remat_encoders and remat_blocks:
+            raise ValueError("use either remat_encoders or remat_blocks")
+        dtype = getattr(torch, compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
         dev = resolve_device(device)
 
         def encoder():
             return SpectrogramEncoder(
                 embed_dim=embed_dim, n_fft=n_fft, hop_length=hop_length,
-                cnn_base_width=cnn_base_width,
+                cnn_base_width=cnn_base_width, cnn_min_width=cnn_min_width,
+                crop_nyquist=crop_nyquist_bin, dtype=dtype, remat_blocks=remat_blocks,
+                remat=remat_encoders,
             )
 
         with torch.device("meta"):  # allocate once, on the target device
@@ -161,9 +193,12 @@ class MixStyleTransferModel(nn.Module):
                     num_master_bus_control_params=num_master_bus_control_params,
                     num_layers=num_layers,
                     nhead=nhead,
+                    dtype=dtype,
                 ),
                 sum_and_diff=sum_and_diff,
             )
+        if dev.type == "meta":
+            return model
         model = model.to_empty(device=dev)
         if generator is None:
             generator = torch.Generator().manual_seed(0)

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffmst_torch.models.cnn14 import cast_to
+
 __all__ = ["TransformerEncoderLayer", "TransformerEncoder"]
 
 _NEG_INF = -1e9
@@ -35,9 +37,11 @@ class _SelfAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.nhead = nhead
+        self.dtype = dtype
         self.self_attn = _SelfAttention(d_model)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
@@ -51,24 +55,32 @@ class TransformerEncoderLayer(nn.Module):
         bs, seq, d = x.shape
         h = self.nhead
         hd = d // h
-        qkv = F.linear(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
+        dt = self.dtype
+
+        def dense(weight, bias, t):
+            return F.linear(cast_to(t, dt), cast_to(weight, dt), cast_to(bias, dt))
+
+        attn = self.self_attn
+        qkv = dense(attn.in_proj_weight, attn.in_proj_bias, x)
         q, k, v = (t.reshape(bs, seq, h, hd).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        scores = torch.matmul(q, k.transpose(-1, -2)).to(x.dtype) / math.sqrt(hd)
         if key_padding_mask is not None:
             bias = torch.where(key_padding_mask[:, None, None, :], _NEG_INF, 0.0)
             scores = scores + bias.to(scores.dtype)
-        ctx = torch.matmul(torch.softmax(scores, dim=-1), v)
-        ctx = self.self_attn.out_proj(ctx.transpose(1, 2).reshape(bs, seq, d))
-        x = self.norm1(x + ctx)  # post-norm residual blocks
-        ff = self.linear2(F.relu(self.linear1(x)))
-        return self.norm2(x + ff)
+        ctx = torch.matmul(torch.softmax(scores, dim=-1), v.to(x.dtype))
+        ctx = dense(attn.out_proj.weight, attn.out_proj.bias, ctx.transpose(1, 2).reshape(bs, seq, d))
+        x = self.norm1(x + ctx.to(x.dtype))  # post-norm residual blocks
+        ff = F.relu(dense(self.linear1.weight, self.linear1.bias, x))
+        ff = dense(self.linear2.weight, self.linear2.bias, ff)
+        return self.norm2(x + ff.to(x.dtype))
 
 
 class TransformerEncoder(nn.Module):
-    def __init__(self, d_model: int, nhead: int, num_layers: int, dim_feedforward: int = 2048):
+    def __init__(self, d_model: int, nhead: int, num_layers: int, dim_feedforward: int = 2048,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, nhead, dim_feedforward) for _ in range(num_layers)
+            TransformerEncoderLayer(d_model, nhead, dim_feedforward, dtype) for _ in range(num_layers)
         )
 
     def forward(

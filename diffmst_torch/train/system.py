@@ -32,9 +32,16 @@ reference-mix parameters (``ref_params``), as JAX's System takes
 ``ke_params``, and the two renders' reverb noise (``reverb_noise``), which
 is how the tests feed the port JAX's draws.
 
-Not ported: the mesh, and the TPU-era optimizer knobs ``adam_mu_dtype`` and
-``flatten_optimizer``, which raise (ROADMAP Queue 1, item 5; the mesh is
-item 12).
+The optimizer is ``torch.optim.Adam`` after the clip, or, with either of
+the JAX package's optimizer options, ``OptaxAdam``, which takes optax's
+steps in optax's order (``diffmst_tpu/train/system.py:198-228``):
+``adam_mu_dtype`` stores Adam's first moment in that dtype (bf16 in
+``configs/models/naive+tpu.yaml``), and ``flatten_optimizer`` runs the clip
+and Adam over one ravelled gradient vector (``optax.flatten``). The two
+layouts' checkpoints are not interchangeable: ``load_state_dict`` refuses
+the other one.
+
+Not ported: the mesh (ROADMAP Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -111,8 +118,12 @@ class SystemConfig:
     # When > 0, an update whose gradients are not all finite is dropped, up
     # to this many in a row (optax.apply_if_finite); 0 applies every update.
     skip_nonfinite_updates: int = 0
-    # TPU-era memory and layout knobs of the JAX package; not ported.
+    # dtype of Adam's first moment (optax's ``mu_dtype``; None: the
+    # parameters'); the second moment and the parameters keep theirs.
     adam_mu_dtype: Optional[str] = None
+    # The clip and Adam over one ravelled gradient vector (optax.flatten):
+    # one flat first and second moment; its checkpoints are not
+    # interchangeable with the per-leaf layout's.
     flatten_optimizer: bool = False
 
 
@@ -162,11 +173,6 @@ class System:
         names = {f.name for f in dataclasses.fields(SystemConfig)}
         base.update({k: v for k, v in kwargs.items() if k in names})
         self.config = SystemConfig(**base)
-        if self.config.adam_mu_dtype is not None or self.config.flatten_optimizer:
-            raise NotImplementedError(
-                "adam_mu_dtype and flatten_optimizer are TPU-era memory and layout "
-                "knobs of the JAX package and are not ported (ROADMAP Queue 1, item 5)"
-            )
         self.model = model
         self.mix_console = mix_console
         self.loss = loss
@@ -187,17 +193,31 @@ class System:
     # ------------------------------------------------------------ optimizer
     def _make_optimizer(self) -> None:
         """Adam after a global-norm clip, with optax's schedule, gradient
-        accumulation and non-finite skipping (system.py:198-228)."""
+        accumulation and non-finite skipping (system.py:198-228):
+        ``torch.optim.Adam``, or ``OptaxAdam`` where ``adam_mu_dtype`` or
+        ``flatten_optimizer`` asks for its layout."""
         cfg = self.config
         self.params = list(self.model.parameters())
-        self.optimizer = torch.optim.Adam(
-            self.params, lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=_ADAM_EPS
-        )
+        mu_dtype = getattr(torch, cfg.adam_mu_dtype) if cfg.adam_mu_dtype else None
+        if cfg.flatten_optimizer or (mu_dtype is not None and any(p.dtype != mu_dtype for p in self.params)):
+            self.optimizer = OptaxAdam(self.params, cfg.adam_b1, cfg.adam_b2, _ADAM_EPS, mu_dtype,
+                                       cfg.flatten_optimizer)
+        else:
+            self.optimizer = torch.optim.Adam(
+                self.params, lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=_ADAM_EPS
+            )
         self.lr_at = lr_schedule(cfg)
         self.updates = 0  # optimizer updates applied: the schedule's count
         self.notfinite_count = 0  # non-finite gradients in a row
         self._mini_step = 0
         self._acc = None  # running mean of the accumulated gradients
+
+    @property
+    def optimizer_layout(self) -> str:
+        """Which optimizer state a checkpoint of this System holds."""
+        if isinstance(self.optimizer, OptaxAdam):
+            return self.optimizer.layout
+        return OptaxAdam.describe(False, self.params[0].dtype)
 
     # ------------------------------------------------------------ state
     def state_dict(self) -> Dict:
@@ -211,6 +231,7 @@ class System:
         return {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
+            "optimizer_layout": self.optimizer_layout,
             "step": self.step,
             "updates": self.updates,
             "notfinite_count": self.notfinite_count,
@@ -220,7 +241,17 @@ class System:
         }
 
     def load_state_dict(self, state: Dict) -> None:
-        """Restore a ``state_dict()`` in place, onto the parameters' device."""
+        """Restore a ``state_dict()`` in place, onto the parameters' device.
+        A checkpoint whose optimizer layout (``optimizer_layout``: per-leaf
+        or flat, the first moment's dtype) is not this System's raises."""
+        # checkpoints written before the optimizer options held torch.optim.Adam's state
+        saved = state.get("optimizer_layout", OptaxAdam.describe(False, torch.float32))
+        if saved != self.optimizer_layout:
+            raise ValueError(
+                f"the checkpoint's optimizer state is {saved}, this System's is "
+                f"{self.optimizer_layout} (SystemConfig.adam_mu_dtype, flatten_optimizer): "
+                "the layouts are not interchangeable"
+            )
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
@@ -408,8 +439,11 @@ class System:
     def apply_gradients(self, grad_norm: torch.Tensor) -> Dict[str, int]:
         """The second half of a train step: optax's
         ``apply_if_finite(MultiSteps(chain(clip_by_global_norm, adam)))``
-        on the gradients in ``.grad``, whose global norm is ``grad_norm``.
-        After it, ``.grad`` holds what the optimizer took."""
+        on the gradients in ``.grad``, whose global norm is ``grad_norm``
+        (``optax.flatten`` around the chain with ``flatten_optimizer``).
+        After it, ``.grad`` holds the clipped gradients the optimizer took;
+        with ``flatten_optimizer`` it took a clipped, ravelled copy, and
+        ``.grad`` keeps the unclipped ones."""
         cfg = self.config
         metrics = {}
         grads = [p.grad for p in self.params]
@@ -433,11 +467,20 @@ class System:
                 g.copy_(a)
                 a.zero_()
             grad_norm = _global_norm(grads)
-        # clip_by_global_norm: g * min(1, c / |g|), on the card, no sync
-        torch._foreach_mul_(grads, torch.clamp(cfg.grad_clip / grad_norm, max=1.0))
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_at(self.updates)
-        self.optimizer.step()
+        if cfg.flatten_optimizer:  # one ravelled vector; its norm is the same global norm
+            grads = [torch.cat([g.reshape(-1) for g in grads])]
+        # clip_by_global_norm as optax takes it, (g / |g|) * c where |g| >= c,
+        # else g as it is (g / 1 * 1), on the card, no sync
+        clip = grad_norm >= cfg.grad_clip
+        torch._foreach_div_(grads, torch.where(clip, grad_norm, 1.0))
+        torch._foreach_mul_(grads, torch.where(clip, cfg.grad_clip, 1.0).to(grad_norm.dtype))
+        lr = self.lr_at(self.updates)
+        if isinstance(self.optimizer, OptaxAdam):
+            self.optimizer.step(grads, lr)
+        else:
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
         self.updates += 1
         return metrics
 
@@ -473,6 +516,87 @@ class System:
         normalized predicted parameters."""
         _, metrics, outputs = self.forward(batch, flags, False, ref_params, reverb_noise)
         return metrics, outputs
+
+
+class OptaxAdam:
+    """``optax.adam`` with ``mu_dtype``, optionally under ``optax.flatten``,
+    stepping ``params`` in place.
+
+    Each step takes optax's operations in optax's order
+    (``optax.scale_by_adam``, then ``-lr * update`` added to the
+    parameters): ``mu32 = (1 - b1) * g + b1 * mu``, the product b1 * mu
+    rounded to mu's dtype as JAX's weakly-typed product is (b1 itself
+    rounded to it first); ``nu = (1 - b2) * g * g + b2 * nu``; the update
+    ``(mu32 / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)`` from the
+    unrounded ``mu32``, the corrections in float32; then ``mu`` stores
+    ``mu32`` in its dtype. ``mu_dtype`` None keeps the parameters' dtype.
+
+    With ``flat``, ``step`` takes one ravelled gradient (the leaves in
+    ``params`` order) and keeps one ``mu`` and one ``nu`` of n_params
+    each; the update is unravelled onto the parameters.
+    """
+
+    def __init__(self, params, b1: float, b2: float, eps: float,
+                 mu_dtype: Optional[torch.dtype] = None, flat: bool = False):
+        self.params = list(params)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.flat = flat
+        if flat:
+            p0 = self.params[0]
+            n = sum(p.numel() for p in self.params)
+            self.nu = [torch.zeros(n, dtype=p0.dtype, device=p0.device)]
+        else:
+            self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(v, dtype=mu_dtype or v.dtype) for v in self.nu]
+        self.count = 0
+
+    @staticmethod
+    def describe(flat: bool, mu_dtype: torch.dtype) -> str:
+        return f"{'flat' if flat else 'per-leaf'}, mu {str(mu_dtype).replace('torch.', '')}"
+
+    @property
+    def layout(self) -> str:
+        return self.describe(self.flat, self.mu[0].dtype)
+
+    @torch.no_grad()
+    def step(self, grads, lr: float) -> None:
+        """One update from ``grads`` (the clipped gradients, in the
+        state's layout) at learning rate ``lr``."""
+        b1, b2 = self.b1, self.b2
+        self.count += 1
+        # the bias corrections in float32, as optax takes decay ** count
+        bc1, bc2 = (float(1.0 - torch.tensor(b, dtype=torch.float32) ** self.count) for b in (b1, b2))
+        b1_mu = float(torch.tensor(b1, dtype=self.mu[0].dtype))
+        mu32 = torch._foreach_mul(grads, 1.0 - b1)
+        torch._foreach_add_(mu32, torch._foreach_mul(self.mu, b1_mu))
+        torch._foreach_copy_(self.mu, mu32)
+        tmp = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(tmp, 1.0 - b2)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, tmp)
+        torch._foreach_div_(mu32, bc1)  # mu_hat
+        torch._foreach_copy_(tmp, self.nu)
+        torch._foreach_div_(tmp, bc2)  # nu_hat
+        torch._foreach_sqrt_(tmp)
+        torch._foreach_add_(tmp, self.eps)
+        torch._foreach_div_(mu32, tmp)
+        torch._foreach_mul_(mu32, -lr)
+        if self.flat:
+            mu32 = [u.view_as(p) for u, p in zip(mu32[0].split([p.numel() for p in self.params]),
+                                                  self.params)]
+        torch._foreach_add_(self.params, mu32)
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a ``state_dict()`` of the same layout into the live state."""
+        for live, saved in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+            if live.shape != saved.shape or live.dtype != saved.dtype:
+                raise ValueError(f"optimizer state {tuple(saved.shape)} {saved.dtype} does not fit "
+                                 f"{tuple(live.shape)} {live.dtype}")
+            live.copy_(saved)
+        self.count = int(state["count"])
 
 
 def _global_norm(tensors) -> torch.Tensor:

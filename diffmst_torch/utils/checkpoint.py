@@ -13,7 +13,10 @@
     Flax conv kernels HWIO -> OIHW, Dense kernels transposed, q/k/v stacked
     into ``in_proj_weight``/``in_proj_bias``, BatchNorm scale/bias/mean/var ->
     weight/bias/running_mean/running_var, the four learned tokens as they are.
-    The port keeps its own copy of the mapping. Its siblings carry the
+    The port keeps its own copy of the mapping; it reads every shape from
+    the arrays, so Cnn14 at any width (``cnn_min_width``) carries across.
+    ``waveform_encoder_state_dict_from_flax`` carries a
+    ``WaveformTransformerEncoder``. Its siblings carry the
     parameter-estimation models across: ``fx_encoder_state_dict_from_flax``,
     ``projector_state_dict_from_flax``, ``unet_state_dict_from_flax`` and
     ``param_est_state_dict_from_flax`` (JAX's ``{"encoder", "projector"}``).
@@ -40,6 +43,7 @@ __all__ = [
     "load_reference_checkpoint",
     "state_dict_from_flax",
     "encoder_state_dict",
+    "waveform_encoder_state_dict_from_flax",
     "fx_encoder_state_dict_from_flax",
     "projector_state_dict_from_flax",
     "unet_state_dict_from_flax",
@@ -166,17 +170,26 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     for enc in ("track_encoder", "mix_encoder"):
-        encoder_state_dict(params[enc], stats.get(enc, {}), f"{enc}.", sd)
+        if "cls" in params[enc]:  # a WaveformTransformerEncoder
+            sd.update((f"{enc}.{k}", v) for k, v in waveform_encoder_state_dict_from_flax(params[enc]).items())
+        else:
+            encoder_state_dict(params[enc], stats.get(enc, {}), f"{enc}.", sd)
 
     ctrl = params["controller"]
     for tok in ("track_embedding", "mix_embedding", "fx_bus_embedding", "master_bus_embedding"):
         sd[f"controller.{tok}"] = _t(ctrl[tok])
-    layers = sorted(
-        int(k.split("_")[1]) for k in ctrl["transformer_encoder"] if k.startswith("layers_")
-    )
+    _transformer(ctrl["transformer_encoder"], "controller.transformer_encoder", sd)
+    for head in ("track_projection", "fx_bus_projection", "master_bus_projection"):
+        _dense(ctrl[head], f"controller.{head}", sd)
+    return sd
+
+
+def _transformer(params: Dict, prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    """A Flax TransformerEncoder's ``layers_i`` into ``sd`` under ``prefix``."""
+    layers = sorted(int(k.split("_")[1]) for k in params if k.startswith("layers_"))
     for i in layers:
-        lp = ctrl["transformer_encoder"][f"layers_{i}"]
-        pre = f"controller.transformer_encoder.layers.{i}"
+        lp = params[f"layers_{i}"]
+        pre = f"{prefix}.layers.{i}"
         qkv = ("q_proj", "k_proj", "v_proj")
         sd[f"{pre}.self_attn.in_proj_weight"] = _t(
             np.concatenate([np.asarray(lp[n]["kernel"]).T for n in qkv], axis=0)
@@ -190,8 +203,13 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for norm in ("norm1", "norm2"):
             sd[f"{pre}.{norm}.weight"] = _t(lp[norm]["scale"])
             sd[f"{pre}.{norm}.bias"] = _t(lp[norm]["bias"])
-    for head in ("track_projection", "fx_bus_projection", "master_bus_projection"):
-        _dense(ctrl[head], f"controller.{head}", sd)
+
+
+def waveform_encoder_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A Flax ``WaveformTransformerEncoder``'s params (``cls`` and the
+    transformer ``model``) -> the port's state dict."""
+    sd: Dict[str, torch.Tensor] = {"cls": _t(params["cls"])}
+    _transformer(params["model"], "model", sd)
     return sd
 
 

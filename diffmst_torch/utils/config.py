@@ -45,8 +45,6 @@ CLASS_ALIASES: Dict[str, str] = {
 # The JAX package's objects that the port does not have yet, by the ROADMAP
 # item (Queue 1) that ports them.
 _NOT_PORTED: Dict[str, str] = {
-    "WaveformTransformerEncoder": "12",
-    "PositionalEncoding": "12",
     "LogAudioCallback": "12",
     "LogReferenceMix": "12",
     "WandbLogger": "12",

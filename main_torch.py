@@ -114,8 +114,13 @@ def _build_model(cfg: dict, dev: torch.device, seed: int, clock: "_Clock"):
 
     model_cfg = cfg.get("model", {})
     init_args = dict(model_cfg.get("init_args", model_cfg))
-    with torch.device("meta"):
-        model = instantiate(init_args.pop("model"))
+    node = init_args.pop("model")
+    if node.get("class_path", "").endswith(".build"):
+        # the factory (configs/models/naive+tpu.yaml) allocates nothing on "meta"
+        model = instantiate(node, device="meta")
+    else:
+        with torch.device("meta"):
+            model = instantiate(node)
     model = model.to_empty(device=dev)
     clock.lap("model allocated", dev)
     model = model.init(torch.Generator().manual_seed(seed)).eval()

@@ -781,3 +781,74 @@ def test_remixer_remix_through_k2_matches_plain(card, monkeypatch):
     assert comp_fused.compressor_fused_gain.launches == before + 2
     assert bool(torch.isfinite(remix).all()) and float(remix.abs().max()) <= 4.0
     assert _rel(remix, plain) <= 1e-4
+
+
+def test_bf16_model_step_through_k2_matches_plain(card, monkeypatch):
+    """A Method-1 step of a bf16 toy-width model (``compute_dtype="bfloat16"``:
+    embed 32, one layer, Cnn14 width 4, hop 128) on 2 x 2 x 32,768: the
+    heads' outputs float32; its forward and backward through K2 (4
+    launches) and K2-bwd (2) against the same pass through K2's plain
+    version, at the same weights, BatchNorm statistics and reference mix
+    (rendered once: the bf16 model turns two renders' 1e-9 difference into
+    1e-3 of the loss), cuDNN deterministic: the loss within 1e-5, the
+    console's cotangents at the predicted parameters within 2e-2 of their
+    norm (``chip_smoke.py`` [training]'s bounds: the MRSTFT loss's L1 signs
+    flip where the two mixes nearly meet)."""
+    import importlib
+
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.losses import MultiResolutionSTFTLoss
+    from diffmst_torch.mixing import naive_random_mix
+    from diffmst_torch.mixing.naive import draw_mix_params
+    from diffmst_torch.models import MixStyleTransferModel
+    from diffmst_torch.train import Batch, System, SystemConfig
+
+    model = MixStyleTransferModel.build(embed_dim=32, num_layers=1, nhead=4, hop_length=128, cnn_base_width=4,
+                                        compute_dtype="bfloat16", device=card)
+    console = AdvancedMixConsole(SR)
+    system = System(model, console, MultiResolutionSTFTLoss(fft_sizes=(512, 2048), hop_sizes=(128, 512),
+                                                            win_lengths=(512, 2048)),
+                    SystemConfig(adam_mu_dtype="bfloat16"), device=card)
+    gen = torch.Generator().manual_seed(5)
+    tracks = (0.1 * torch.randn(2, 2, 32768, generator=gen)).to(card)
+    ids = torch.zeros(2, 2, dtype=torch.int32)
+    batch = Batch(tracks, ids, ids, torch.zeros(2, 2, dtype=torch.bool, device=card),
+                  torch.zeros(2, 2, 32768, device=card))
+    ref_params = draw_mix_params(tracks, console, torch.Generator().manual_seed(6))
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    ref_once = {}
+
+    def fixed_reference(tracks, console_, generator, **kw):
+        if "ref" not in ref_once:
+            ref_once["ref"] = naive_random_mix(tracks, console_, generator, **kw)
+        return ref_once["ref"]
+
+    system.mix_fn = fixed_reference
+
+    def grad_pass():
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(stats[k])
+        loss, _, out = system.forward(batch, system.effect_flags(0), True, ref_params)
+        assert all(p.dtype == torch.float32 for p in out["pred_params"])
+        cot = {}
+        for name, p in (("track", out["pred_params"][0]), ("master", out["pred_params"][2])):
+            p.register_hook(lambda g, name=name: cot.__setitem__(name, g.detach().clone()))
+        system.backward(loss)
+        torch.cuda.synchronize()
+        return float(loss.detach()), cot
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    before = (comp_fused.compressor_fused_gain.launches, comp_fused.compressor_fused_backward.launches)
+    loss_k, cot_k = grad_pass()
+    after = (comp_fused.compressor_fused_gain.launches, comp_fused.compressor_fused_backward.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (4, 2)
+    comp_ops = importlib.import_module("diffmst_torch.ops.compressor")
+    monkeypatch.setattr(comp_ops, "compressor_fused_gain", lambda x, xd, thr, ratio, knee, alpha, makeup, eps=1e-8: (
+        comp_fused._Compressor.apply(x, xd, comp_fused._param_rows(thr, ratio, knee, alpha, makeup).contiguous(),
+                                     eps, True)))
+    loss_p, cot_p = grad_pass()
+    assert (comp_fused.compressor_fused_gain.launches, comp_fused.compressor_fused_backward.launches) == after
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for name in ("track", "master"):
+        assert float((cot_k[name] - cot_p[name]).norm() / cot_p[name].norm()) <= 2e-2, name

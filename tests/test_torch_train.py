@@ -426,12 +426,6 @@ def test_train_step_raises_without_a_card():
         system.train_step(_port_batch(), system.effect_flags(0))
 
 
-@pytest.mark.parametrize("knob", [dict(adam_mu_dtype="bfloat16"), dict(flatten_optimizer=True)])
-def test_tpu_optimizer_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(torch.nn.Linear(2, 2), None, None, SystemConfig(**knob), device="cpu")
-
-
 def test_effect_flags_follow_the_curriculum():
     system = System(torch.nn.Linear(2, 2), None, None,
                     SystemConfig(active_eq_epoch=2, active_master_bus_epoch=1), device="cpu")
