@@ -24,7 +24,11 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      apply; CUDA events), and the stages it writes for its backward
      against the plain version's; K5's backward at the track and master
      EQs' shapes, its time split by its four kernels (chunk, carry, apply,
-     reduce);
+     reduce); the "ballistics" smoother's kernel at 32 x 262,144 against
+     its plain version, its backward (K4's backward kernel on the recorded
+     coefficients) against the plain composition, its time beside two
+     bounds (its bytes, and the latency of its dependent steps), one call
+     traced (one kernel, no memset);
   4. reference: a small song rendered on the card and on the CPU (the
      kernels' plain versions) with the same weights;
   5. serving: three 60 s, 8-track requests through ``run_diffmst`` with the
@@ -98,7 +102,16 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      statistics against a plain step's), a flattened-optimizer update
      against the per-leaf one, a 60 s request with the bf16 model, and
      ``main_torch.py fit`` and a resume on the recipe over [cli]'s corpus
-     (subprocesses; the checkpoint's first moment bf16).
+     (subprocesses; the checkpoint's first moment bf16);
+ 17. observe: a ``Trainer.fit`` of 3 steps at full width over [cli]'s
+     corpus with ``profile_steps=range(1, 2)``, ``LogAudioCallback`` and
+     ``LogReferenceMix`` (the trace read by ``utils/trace_ops.py``: K2,
+     K2-bwd and the ``system.*`` ranges; the callbacks' files), two
+     Method-1 steps with ``comp_smoother="ballistics"`` (the ballistics
+     kernel and K4-bwd; the console's gradients against the plain
+     versions'), ``device_timer`` and ``Meter`` on a K2 call, and
+     ``scripts/{compare,datasets,info,unet_separator_demo}_torch.py`` as
+     subprocesses.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -111,6 +124,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -273,6 +287,51 @@ def _static_gain_db(x, thr, ratio, knee):
     return gain(x_db, thr[:, None], ratio[:, None], knee[:, None])
 
 
+SPIN_KERNEL = "spin_kernel"  # the kernel of torch.cuda._sleep
+SPIN_LEAD = 64  # spin kernels ahead of a traced call, times 4 on each retake
+
+
+def device_ops(fn, attempts: int = 3) -> dict:
+    """The kernel launches, memsets and copies that one call of ``fn`` puts
+    on the card, from a torch.profiler trace of that call: the card's
+    records of them, and the runtime calls that enqueued them. A trace
+    begun some seconds after the last one ended can lose the first few
+    records of the card's activity while keeping every runtime call (on an
+    H100: 1 to 4 of them, more as the process ages; a lone kernel's trace
+    comes back empty, a memset and a kernel as the kernel alone;
+    ``scripts/trace_probe_torch.py``). So ``SPIN_LEAD`` spin kernels run
+    first in the window, finished before the call, and are left out of
+    both counts. A trace whose two counts differ is taken again with four
+    times the lead, up to ``attempts`` in all; the card's records are the
+    answer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kinds = (("kernels", "cudaLaunchKernel"), ("memsets", "cudaMemset"), ("copies", "cudaMemcpy"))
+    for trace in range(1, attempts + 1):
+        lead = SPIN_LEAD * 4 ** (trace - 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        names = [e.name for e in events if e.device_type == cuda and SPIN_KERNEL not in e.name]
+        calls = [e.name for e in events if e.device_type != cuda]
+        memsets = sum(n.startswith("Memset") for n in names)
+        copies = sum(n.startswith("Memcpy") for n in names)
+        device = dict(kernels=len(names) - memsets - copies, memsets=memsets, copies=copies)
+        runtime = {k: sum(c.startswith(prefix) for c in calls) for k, prefix in kinds}
+        runtime["kernels"] -= lead  # the spin kernels' launches
+        if device == runtime:
+            break
+        line(f"[kernels] trace {trace} of {attempts} ({lead} spin kernels first): the card's records"
+             f" {device} differ from the runtime calls {runtime}")
+    return dict(device, names=[n[:60] for n in names], runtime=runtime, traces=trace)
+
+
 def phase_kernels(form: str):
     """K1, K2, K3 and K5 against their plain versions at the serving shapes,
     and their backward kernels at the training shapes."""
@@ -325,37 +384,16 @@ def phase_kernels(form: str):
             s.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, shape=shape,
                      achieved_tb_s=nbytes / ms / 1e9)
 
-    def device_ops(fn, attempts=3):
-        """The kernel launches, memsets and copies that one call of ``fn``
-        puts on the card, from a torch.profiler trace of that call. Now and
-        then a short trace comes back with no device activity at all, not
-        even the memset: such a trace is taken again, up to ``attempts``
-        traces in all. A trace that holds any device event is the answer."""
-        from torch.profiler import ProfilerActivity, profile
-
-        for trace in range(1, attempts + 1):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-            if names:
-                break
-            line(f"[kernels] trace {trace} of {attempts} recorded no device activity")
-        memsets = sum(n.startswith("Memset") for n in names)
-        copies = sum(n.startswith("Memcpy") for n in names)
-        return dict(kernels=len(names) - memsets - copies, memsets=memsets, copies=copies,
-                    names=[n[:60] for n in names], traces=trace)
-
-    def traced(name, shape, fn):
+    def traced(name, shape, fn, memsets=1):
         """Requires one call of a single-pass kernel's wrapper to put one
-        kernel launch and one memset, and no copy, on the card."""
+        kernel launch and ``memsets`` memsets (its scratch's), and no copy,
+        on the card."""
         ops = device_ops(fn)
         line(f"[kernels] {name} {shape}, one call traced (torch.profiler, trace {ops['traces']}):"
              f" {ops['kernels']} kernel launches, {ops['memsets']} memsets, {ops['copies']} copies"
-             f" ({'; '.join(ops['names'])})")
-        require((ops["kernels"], ops["memsets"], ops["copies"]) == (1, 1, 0),
-                f"one {name} call is one kernel and one memset ({ops})")
+             f" ({'; '.join(ops['names'])}); the runtime calls that enqueued them {ops['runtime']}")
+        require((ops["kernels"], ops["memsets"], ops["copies"]) == (1, memsets, 0),
+                f"one {name} call is one kernel and {memsets} memsets ({ops})")
         stats[name].update(cuda_launches_per_call=ops["kernels"], memsets_per_call=ops["memsets"])
 
     # K1: y[n] = a y[n-1] + (1 - a) g[n], g the compressor's gain in dB
@@ -732,7 +770,92 @@ def phase_kernels(form: str):
             stats["sosfilt_backward"]["pass_ms"] = split
     line("[kernels] sosfilt_backward moves 40 bytes a sample (dy read twice; x, the five stages and y"
          " once; dx written) in four launches; the bound counts 36")
+    phase_ballistics(stats, form, flush, gen, params, audio, traced)
     return stats
+
+
+def phase_ballistics(stats, form, flush, gen, params, audio, traced):
+    """The "ballistics" smoother's kernel at 32 x 262,144, on the gains of
+    audio whose level alternates every 50 ms (attack 1-20 ms, release
+    50-300 ms), against its plain version: the forward in dB, then its
+    backward (K4's backward kernel and elementwise operations, on the
+    forward's recorded coefficients and branches) against the plain
+    composition. Times: the kernel's median, the plain version's one call,
+    and two bounds: its bytes over the memory rate, and the latency of its
+    262,144 dependent steps (``ballistics_chain``, one thread, no memory)."""
+    import importlib
+
+    from diffmst_torch.ops.compressor import _ballistics_coeff
+
+    smoother = importlib.import_module("diffmst_torch.kernels.smoother")
+    dev = torch.device("cuda")
+    rows, t = 32, WINDOW
+    level = 0.05 + 0.95 * ((torch.arange(t, device=dev) // int(0.05 * SR)) % 2)
+    thr, ratio, _, knee, _ = params(rows)
+    g = _static_gain_db(audio(rows) * level, thr, ratio, knee).contiguous()
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(rows, device=dev, generator=gen)  # noqa: E731
+    aa, ar = _ballistics_coeff(u(1.0, 20.0), SR).contiguous(), _ballistics_coeff(u(50.0, 300.0), SR).contiguous()
+    smoother.ballistics.launches = 0
+    y = smoother.ballistics(g, aa, ar)
+    y_rec, a, attack = smoother._launch(g, aa, ar, record=True)
+    torch.cuda.synchronize()
+    launches = smoother.ballistics.launches
+    stats["ballistics"] = {}
+    traced("ballistics", f"{rows}x{t}", lambda: smoother.ballistics(g, aa, ar), memsets=0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    y_p, a_p, attack_p = smoother.ballistics_plain(g, aa, ar, record=True)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)  # one call: the plain loop takes seconds
+    err = (y - y_p).abs().max().item()
+    n_attack = int(attack.sum())
+    line(f"[kernels] ballistics {rows}x{t}: max_abs_err {err:.3g} dB against the plain version;"
+         f" the recording launch's output {'equal' if torch.equal(y_rec, y) else 'unequal'} to the other's;"
+         f" branches: attack {n_attack}, release {attack.numel() - n_attack}, differing from the plain"
+         f" version's {int((attack != attack_p).sum())}, coefficients differing {int((a != a_p).sum())}")
+    require(bool(torch.isfinite(y).all()), "ballistics output finite")
+    require(launches == 2, f"two ballistics launches ({launches})")
+    require(err <= 1e-4, f"ballistics {rows}x{t} agrees with its plain version in dB ({err})")
+    require(torch.equal(y_rec, y), "the recording launch writes the same output")
+    require(min(n_attack, attack.numel() - n_attack) >= 1000, f"both branches taken ({n_attack})")
+
+    bwd = importlib.import_module("diffmst_torch.kernels.scan1p").onepole_core_backward
+    dy = torch.randn(rows, t, device=dev, generator=gen)
+    bwd.launches_per_sample = 0
+    got = smoother.ballistics_backward(dy, g, y, a, attack)
+    torch.cuda.synchronize()
+    want = smoother.ballistics_backward_plain(dy, g, y, a, attack)
+    rel = {k: (u_.double() - w.double()).abs().max().item() / max(w.double().abs().max().item(), 1e-30)
+           for k, u_, w in zip(("dg", "dalpha_a", "dalpha_r"), got, want)}
+    line(f"[kernels] ballistics backward {rows}x{t} (K4's backward kernel, {bwd.launches_per_sample} launch,"
+         f" and elementwise operations) against the plain composition, of each output's max-abs: "
+         + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+    require(all(bool(torch.isfinite(v).all()) for v in got), "ballistics backward finite")
+    require(bwd.launches_per_sample == 1, f"the backward is one K4-bwd launch ({bwd.launches_per_sample})")
+    require(rel["dg"] <= 1e-5, f"ballistics backward dg agrees with the plain composition ({rel})")
+    require(max(rel["dalpha_a"], rel["dalpha_r"]) <= 1e-4,
+            f"ballistics backward row sums agree with the plain composition ({rel})")
+
+    ms = time_ms(lambda: smoother.ballistics(g, aa, ar), flush)
+    rec_ms = time_ms(lambda: smoother._launch(g, aa, ar, record=True), flush)
+    bwd_ms = time_ms(lambda: smoother.ballistics_backward(dy, g, y, a, attack), flush)
+    chain_ms = smoother.chain_seconds(t, float(aa[0]), float(ar[0])) * 1e3
+    n = rows * t
+    # read g, write y; the two poles a row. Per sample the compare, the
+    # select, the subtraction and the fused multiply-add in float64: 4
+    nbytes, flops = n * 8 + rows * 8, 4 * n
+    rate, fp64 = HBM_RATE[form], FP64_RATE[form]
+    bound_ms = max(nbytes / rate, flops / fp64) * 1e3
+    line(f"[kernels] ballistics {rows}x{t}: {ms:.4f} ms (recording the coefficients and branches"
+         f" {rec_ms:.4f} ms; the composed backward {bwd_ms:.4f} ms) | plain {plain_ms:.1f} ms (one call)"
+         f" | bounds: bytes {nbytes / rate * 1e6:.1f} us ({nbytes / 1e6:.1f} MB at {rate / 1e12:.2f} TB/s),"
+         f" operations {flops / fp64 * 1e6:.1f} us, the dependent steps' latency {chain_ms:.4f} ms"
+         f" ({chain_ms * 1e6 / t:.2f} ns a step, one thread) | {ms / chain_ms:.2f}x the latency bound")
+    stats["ballistics"].update(
+        max_abs_err=err, max_rel_err=max(rel.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes" if nbytes / rate >= flops / fp64 else "operations", shape=f"{rows}x{t}",
+        achieved_tb_s=nbytes / ms / 1e9, latency_bound_ms=chain_ms, ms_recording=rec_ms, backward_ms=bwd_ms)
 
 
 def pass_times(launch, names, flush) -> dict:
@@ -1011,12 +1134,16 @@ def synth_batch(seed: int):
 
 
 def _counters():
+    import importlib
+
     from diffmst_torch.kernels import comp_fused, iir_fused, scan1p
 
+    smoother = importlib.import_module("diffmst_torch.kernels.smoother")
     return {"K1": scan1p.onepole_core, "K1-bwd": scan1p.onepole_core_backward,
             "K2": comp_fused.compressor_fused_gain, "K2-bwd": comp_fused.compressor_fused_backward,
             "K3": scan1p.release_min_scan, "K3-bwd": scan1p.release_min_scan_backward,
-            "K5": iir_fused.sosfilt, "K5-bwd": iir_fused.sosfilt_backward}
+            "K5": iir_fused.sosfilt, "K5-bwd": iir_fused.sosfilt_backward,
+            "ballistics": smoother.ballistics}
 
 
 def reset_counts() -> None:
@@ -1235,15 +1362,18 @@ def phase_train_profile(system, batch, flags, tag="train-profile"):
 
 @contextlib.contextmanager
 def plain_versions():
-    """The console's K1, K2, K3 and K5 swapped for their plain versions,
-    forward and backward, on the card: the console's modules call these
-    names."""
+    """The console's K1, K2, K3, K5 and the ballistics kernel swapped for
+    their plain versions, forward and backward, on the card: the console's
+    modules call these names."""
     import importlib
 
     from diffmst_torch.kernels import comp_fused, iir_fused, scan1p
 
     comp_ops = importlib.import_module("diffmst_torch.ops.compressor")
-    saved = (comp_ops.onepole_core, comp_ops.release_min_scan, comp_ops.compressor_fused_gain, iir_fused.sosfilt)
+    smoother = importlib.import_module("diffmst_torch.kernels.smoother")
+    saved = (comp_ops.onepole_core, comp_ops.release_min_scan, comp_ops.compressor_fused_gain, iir_fused.sosfilt,
+             comp_ops.ballistics)
+    comp_ops.ballistics = lambda g, aa, ar: smoother._Ballistics.apply(g, aa, ar, True)
     comp_ops.onepole_core = lambda b, a: scan1p._Onepole.apply(b, a, True)
     comp_ops.release_min_scan = lambda g, a: scan1p._MinScan.apply(g, a, True)
     comp_ops.compressor_fused_gain = lambda x, xd, thr, ratio, knee, alpha, makeup, eps=1e-8: (
@@ -1253,7 +1383,8 @@ def plain_versions():
     try:
         yield
     finally:
-        comp_ops.onepole_core, comp_ops.release_min_scan, comp_ops.compressor_fused_gain, iir_fused.sosfilt = saved
+        (comp_ops.onepole_core, comp_ops.release_min_scan, comp_ops.compressor_fused_gain, iir_fused.sosfilt,
+         comp_ops.ballistics) = saved
 
 
 def phase_training_causal():
@@ -2526,6 +2657,231 @@ def phase_tpu_recipe(root: pathlib.Path, tmp: pathlib.Path) -> dict:
     return launches
 
 
+OBSERVE_SCRIPTS = ("compare_torch.py", "datasets_torch.py", "info_torch.py", "unet_separator_demo_torch.py")
+
+
+def phase_observe(root: pathlib.Path, tmp: pathlib.Path, k2_ms: float) -> dict:
+    """Tracing and logging a fit, and the ballistics smoother on the
+    training path. (a) ``Trainer.fit`` of 3 steps over [cli]'s corpus at
+    ``naive.yaml``'s full width, built by ``main_torch.build_from_config``,
+    with ``profile_steps=range(1, 2)``, ``LogAudioCallback`` and
+    ``LogReferenceMix`` on one song: the trace's K2 and K2-bwd kernels and
+    ``system.*`` ranges by ``utils/trace_ops.py``, the callbacks' files, the
+    K2 launches of the reference render; (b) two Method-1 steps with
+    ``comp_smoother="ballistics"`` at 4 x 8 x 262,144 on that model, and the
+    console's gradients through the kernels against the plain versions'
+    (one fixed cotangent); (c) ``device_timer`` and ``Meter`` on a K2 call;
+    (d) the four ``scripts/*_torch.py`` of this slice as subprocesses, side
+    by side, on [cli]'s files. Returns the launches of (a) and (b)."""
+    import yaml
+
+    import main_torch
+    from diffmst_torch.callbacks import LogAudioCallback, LogReferenceMix
+    from diffmst_torch.callbacks.audio import system_model_apply
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.data import read_audio
+    from diffmst_torch.kernels import comp_fused
+    from diffmst_torch.losses import MultiResolutionSTFTLoss
+    from diffmst_torch.ops.compressor import _ballistics_coeff
+    from diffmst_torch.train import System, SystemConfig
+    from diffmst_torch.utils.config import load_config
+    from diffmst_torch.utils.profiler import Meter, device_timer
+    from diffmst_torch.utils.trace_ops import category_breakdown_from_trace, top_ops_from_trace
+
+    phase_t0 = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) a profiled, logged fit
+    corpus, obs = tmp / "corpus", tmp / "observe"
+    obs.mkdir()
+    overlay = obs / "observe.yaml"
+    overlay.write_text(yaml.safe_dump({
+        "trainer": {"max_epochs": 1, "log_every_n_steps": 1, "num_sanity_val_steps": 0,
+                    "check_val_every_n_epoch": 1, "enable_checkpointing": False},
+        "data": {"init_args": {"track_root_dirs": [str(corpus)], "metadata_files": [str(corpus / "meta.yaml")],
+                               "num_examples_per_pass": 12, "num_train_passes": 1}}}))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.chdir(root):
+        system, _, trainer = main_torch.build_from_config(
+            load_config([str(root / c) for c in CLI_CONFIGS] + [str(overlay)]))
+    song = corpus / "val_song00"
+    audio_dir, ref_dir, prof_dir = obs / "audio", obs / "refmix", obs / "profiles"
+    refmix = LogReferenceMix([str(song)], [str(song / "keys_st.wav")], output_dir=str(ref_dir), length=WINDOW,
+                             model_apply=system_model_apply, mix_console=system.mix_console)
+    ref_k2 = []
+    render_refmix = refmix.on_validation_end
+
+    def counted_refmix(*args):
+        before = read_counts()["K2"]
+        render_refmix(*args)
+        ref_k2.append(read_counts()["K2"] - before)
+
+    refmix.on_validation_end = counted_refmix
+    trainer.callbacks += [LogAudioCallback(output_dir=str(audio_dir), mix_console=system.mix_console), refmix]
+    trainer.profile_steps, trainer.profile_dir = range(1, 2), str(prof_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.chdir(root):
+        trainer.fit()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    add(counts)
+    n = _cli_numbers(out.getvalue())
+    require(len(n["steps_per_sec"]) == 3 and all(np.isfinite(x) for x in n["losses"]),
+            f"the observed fit: 3 logged steps, losses finite ({n})")
+    t0 = time.perf_counter()
+    device = top_ops_from_trace(str(prof_dir), top_n=10**6)
+    host = top_ops_from_trace(str(prof_dir), top_n=10**6, device_substr="cpu")
+    breakdown = category_breakdown_from_trace(str(prof_dir))
+    read_s = time.perf_counter() - t0
+    k2 = sum(r["occurrences"] for r in device if "CompressorOp" in r["op"])
+    k2_bwd = sum(r["occurrences"] for r in device if "CompressorBackwardOp" in r["op"])
+    ranges = {r["op"]: r for r in host if r["op"].startswith("system.")}
+    traces = sorted(p.name for p in prof_dir.iterdir())
+    line(f"[observe] (a) Trainer.fit, 3 steps at full width over [cli]'s corpus with profile_steps=range(1, 2):"
+         f" {fit_s:.1f} s, [train] steps/s {n['steps_per_sec']}; launches {counts}; trace {traces}"
+         f" ({sum(p.stat().st_size for p in prof_dir.iterdir())} bytes), read in {read_s:.1f} s;"
+         f" K2 {k2} and K2-bwd {k2_bwd} kernels in it")
+    for r in device[:10]:
+        line(f"[observe] (a) top op {r['rank']:2d}: {r['total_ms']:9.3f} ms {r['pct_of_total']:5.1f}%"
+             f" {r['occurrences']:5d}x {r['category']}: {r['op'][:90]}")
+    line("[observe] (a) categories: " + "; ".join(
+        f"{c['category']} {c['total_ms']:.3f} ms ({c['pct_of_total']}%, {c['occurrences']}x)" for c in breakdown))
+    line("[observe] (a) ranges (host ms, occurrences): " + ", ".join(
+        f"{k} {r['total_ms']:.1f} ({r['occurrences']}x)" for k, r in sorted(ranges.items())))
+    require(k2 > 0 and k2_bwd > 0, f"the trace lists K2 and K2-bwd by name ({k2}, {k2_bwd})")
+    require(all(f"system.{k}" in ranges for k in ("ref_mix", "model", "render", "loss", "backward", "optimizer")),
+            f"the trace lists the system.* ranges ({sorted(ranges)})")
+    audio_files = sorted(os.listdir(audio_dir))
+    mix, _ = read_audio(str(ref_dir / "epoch0000_val_song00.wav"))
+    line(f"[observe] (a) LogAudioCallback wrote {audio_files}; LogReferenceMix wrote {os.listdir(ref_dir)}"
+         f" ({mix.shape[1]} samples), launching K2 {ref_k2} times")
+    require("epoch0000_params.json" in audio_files and "epoch0000_ex0.wav" in audio_files,
+            f"LogAudioCallback's files ({audio_files})")
+    require(np.isfinite(mix).all() and np.abs(mix).max() > 0, "LogReferenceMix wrote a finite mix")
+    require(len(ref_k2) == 1 and ref_k2[0] > 0, f"LogReferenceMix's render launched K2 ({ref_k2})")
+
+    # (b) the ballistics smoother in a Method-1 step
+    console = AdvancedMixConsole(SR, **CONSOLE_RANGES, comp_smoother="ballistics")
+    sys_b = System(system.model.train(), console, MultiResolutionSTFTLoss(**MRSTFT), SystemConfig(),
+                   generator=torch.Generator().manual_seed(1))
+    batch = synth_batch(13)
+    batch = type(batch)(*(t.cuda() for t in batch))
+    flags = sys_b.effect_flags(0)
+    walls = []
+    for step in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        m = sys_b.train_step(batch, flags)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        add(counts)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        line(f"[observe] (b) ballistics step {step + 1}: {walls[-1]:.3f} s, loss {loss:.5f}, grad_norm {gn:.5g},"
+             f" launches {counts}")
+        require(np.isfinite(loss) and np.isfinite(gn), f"ballistics step {step + 1} loss and grad_norm finite")
+        require(counts["ballistics"] == 4 and counts["K4-bwd"] == 2 and counts["K2"] == counts["K2-bwd"] == 0,
+                f"ballistics step {step + 1}: 4 ballistics and 2 K4-bwd launches, no K2 ({counts})")
+    with torch.no_grad():
+        _, _, outs = sys_b.forward(batch, flags, True)
+    tp, fp, mp = (t.detach() for t in outs["pred_params"])
+    tracks_b = batch.tracks[..., HALF:]
+    w = torch.randn(TRAIN_BS, 2, HALF, device="cuda", generator=torch.Generator("cuda").manual_seed(4))
+
+    def console_grads():
+        leaves = [t.clone().requires_grad_() for t in (tracks_b, tp, mp)]
+        mix_ = console(leaves[0], leaves[1], fp, leaves[2], use_fx_bus=False).mix
+        (mix_ * w).sum().backward()
+        torch.cuda.synchronize()
+        return [leaf.grad for leaf in leaves]
+
+    reset_counts()
+    got = console_grads()
+    kernel_counts = read_counts()
+    t0 = time.perf_counter()
+    with plain_versions():
+        reset_counts()
+        want = console_grads()
+        plain_counts = read_counts()
+    plain_s = time.perf_counter() - t0
+    rel = {name: float((g.double() - p.double()).norm() / p.double().norm())
+           for name, g, p in zip(("tracks", "track_params", "master_params"), got, want)}
+    line(f"[observe] (b) ballistics steps at {TRAIN_BS}x{TRAIN_TRACKS}x{WINDOW}: step 2 {1.0 / walls[1]:.3f} steps/s"
+         f" ({walls[1]:.3f} s), step 1 {walls[0]:.3f} s; the console's gradients at the predicted parameters,"
+         f" kernels vs plain versions on the card ({plain_s:.1f} s), of each tensor's norm: "
+         + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+         + f"; launches {kernel_counts} (plain pass {plain_counts})")
+    require(kernel_counts["ballistics"] == 2 and kernel_counts["K4-bwd"] == 2,
+            f"the console's gradients ran the ballistics kernel and K4-bwd ({kernel_counts})")
+    require(not any(plain_counts.values()), f"the plain pass launched no kernel ({plain_counts})")
+    require(max(rel.values()) <= 1e-4, f"the ballistics console's gradients agree with the plain versions' ({rel})")
+    del sys_b, system, trainer, batch, got, want
+
+    # (c) device_timer and Meter on a K2 call at the track chain's shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(32, WINDOW, device="cuda", generator=gen)
+    x = (x / x.abs().amax(dim=-1, keepdim=True)).contiguous()
+    xd = torch.roll(x, 2048, dims=-1)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(32, device="cuda", generator=gen)  # noqa: E731
+    thr, ratio, knee, alpha, makeup = u(-40, -6), u(1.5, 10), u(3, 12), _ballistics_coeff(u(1, 250), SR), u(0, 6)
+    k2_call = lambda v: comp_fused.compressor_fused_gain(v, xd, thr, ratio, knee, alpha, makeup)  # noqa: E731
+    sec = device_timer(k2_call, x, iters=20, reps=5)
+    meter = Meter(audio_seconds_per_step=32 * WINDOW / SR, warmup=2)
+    for _ in range(12):
+        k2_call(x)
+        torch.cuda.synchronize()
+        meter.tick()
+    summary = meter.summary()
+    line(f"[observe] (c) K2 at 32x{WINDOW}: device_timer {sec * 1e3:.4f} ms an iteration (20 dependent calls,"
+         f" each with the carry's scaling; best of 5), Meter p50 {summary['p50_ms']:.4f} ms and p90"
+         f" {summary['p90_ms']:.4f} ms a synchronized call ({summary['steps_per_sec']:.1f} calls/s,"
+         f" {summary['realtime_factor']:.1f}x realtime); [kernels]' median {k2_ms:.4f} ms")
+    require(0 < sec < 1.0 and summary["p50_ms"] > 0, f"the instruments measured ({sec}, {summary})")
+
+    # (d) the four scripts, side by side, on [cli]'s files; the U-Net demo on the card
+    argv = {
+        "compare_torch.py": [str(song / "keys_st.wav"), str(corpus / "train_song00" / "keys_st.wav"),
+                             "--output_dir", str(obs / "compare")],
+        "datasets_torch.py": ["--input_dir", str(song), "--output_dir", str(obs / "datasets"), "--sr", "48000"],
+        "info_torch.py": ["--root", str(corpus)],
+        "unet_separator_demo_torch.py": ["3", "2"],
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(root / "scripts" / name), *args], cwd=obs,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, args in argv.items()}
+    results = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            results[name] = stdout
+            require(proc.returncode == 0, f"{name} exited {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    scripts_s = time.perf_counter() - t0
+    demo = json.loads(results["unet_separator_demo_torch.py"].strip().splitlines()[-1])
+    n_mono = len(list((obs / "datasets").rglob("*.wav")))
+    census = [ln for ln in results["info_torch.py"].splitlines() if ln]
+    line(f"[observe] (d) {', '.join(OBSERVE_SCRIPTS)} as subprocesses in {scripts_s:.1f} s: compare wrote"
+         f" {sorted(p.name for p in (obs / 'compare').rglob('*.*'))}; datasets {n_mono} mono files at 48 kHz;"
+         f" info {census}; U-Net demo on {demo['backend']}, {demo['steps']} steps in {demo['wall_s']} s,"
+         f" held-out SI-SDR {demo['heldout_sisdr_baselines_db']} dB, trained {demo['heldout_sisdr_trained_db']}")
+    require(any((obs / "compare").rglob("features.csv")), "compare_torch.py wrote its CSV")
+    require(n_mono > 0 and any(ln.startswith("total audio") for ln in census), "datasets and info ran")
+    require(demo["backend"] == "cuda" and all(np.isfinite(v) for v in demo["heldout_sisdr_baselines_db"].values()),
+            f"the U-Net demo ran on the card ({demo})")
+    line(f"[observe] the phase: {time.perf_counter() - phase_t0:.1f} s; launches {launches}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, k, **extra):
     """The kernel's entry of the JSON line, with the achieved TB/s of the
     bytes its function must move; the kernel launches and memsets a call,
@@ -2574,12 +2930,15 @@ def main() -> int:
         evaluation = phase_eval(root, tmp)
         torch.cuda.empty_cache()
         recipe = phase_tpu_recipe(root, tmp)
+        torch.cuda.empty_cache()
+        observe = phase_observe(root, tmp, stats["compressor_fused_gain"]["ms"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    scan_cu, comp_cu, iir_cu = ("diffmst_torch/kernels/csrc/scan1p.cu",
-                                "diffmst_torch/kernels/csrc/comp_fused.cu",
-                                "diffmst_torch/kernels/csrc/iir_fused.cu")
+    scan_cu, comp_cu, iir_cu, ball_cu = ("diffmst_torch/kernels/csrc/scan1p.cu",
+                                         "diffmst_torch/kernels/csrc/comp_fused.cu",
+                                         "diffmst_torch/kernels/csrc/iir_fused.cu",
+                                         "diffmst_torch/kernels/csrc/ballistics.cu")
     serving = {k: sum(c[k] for c in stream) for k in stream[0]}
     serving["K1"] += k1_launches
     serving["K2"] += k2_launches
@@ -2590,28 +2949,33 @@ def main() -> int:
         the three streaming ones), the training steps (four, then two
         causal ones), the CLI's steps, [feature-loss]'s steps and fx-bus
         requests, [param-est]'s remixes, [eval]'s requests, online
-        iterations and exported requests, and [tpu-recipe]'s steps and
-        bf16 request."""
+        iterations and exported requests, [tpu-recipe]'s steps and bf16
+        request, and [observe]'s profiled fit and ballistics steps."""
         total = (serving[key] + training[key] + cli[key] + feature.get(key, 0) + param_est.get(key, 0)
-                 + evaluation.get(key, 0) + recipe.get(key, 0))
+                 + evaluation.get(key, 0) + recipe.get(key, 0) + observe.get(key, 0))
         return kernel_entry(name, source, replaces, total, stats[name],
                             launches_serving=serving[key], launches_training=training[key],
                             launches_cli=cli[key], launches_feature_loss=feature.get(key, 0),
                             launches_param_est=param_est.get(key, 0), launches_eval=evaluation.get(key, 0),
-                            launches_tpu_recipe=recipe.get(key, 0), on_path=True, **extra)
+                            launches_tpu_recipe=recipe.get(key, 0), launches_observe=observe.get(key, 0),
+                            on_path=True, **extra)
 
     kernels = [
         entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),
         entry("K2", "compressor_fused_gain", comp_cu, "diffmst_tpu/kernels/comp_fused.py:98"),
         entry("K1-bwd", "onepole_core_backward", scan_cu,
               "diffmst_tpu/kernels/scan1p.py:145 (onepole_scan VJP, :142-150)"),
-        # K4 and its backward are on no path (no smoother uses them)
+        # K4's forward is on no path (no smoother uses it); its backward is
+        # the ballistics smoother's
         kernel_entry("onepole_core_per_sample", scan_cu,
                      "diffmst_tpu/kernels/scan1p.py:111 (per-sample alpha, onepole_scan_tv:160)",
                      serving["K4"] + training["K4"], stats["onepole_core_per_sample"], on_path=False),
-        kernel_entry("onepole_core_backward_per_sample", scan_cu,
-                     "diffmst_tpu/kernels/scan1p.py:183 (onepole_scan_tv VJP, :176-187)",
-                     train["K4-bwd"], stats["onepole_core_backward_per_sample"], on_path=False),
+        entry("K4-bwd", "onepole_core_backward_per_sample", scan_cu,
+              "diffmst_tpu/kernels/scan1p.py:183 (onepole_scan_tv VJP, :176-187)"),
+        entry("ballistics", "ballistics", ball_cu,
+              "diffmst_tpu/ops/compressor.py:161 (_smooth_ballistics, lax.scan)",
+              latency_bound_ms=stats["ballistics"]["latency_bound_ms"],
+              ms_recording=stats["ballistics"]["ms_recording"], backward_ms=stats["ballistics"]["backward_ms"]),
         entry("K2-bwd", "compressor_fused_backward", comp_cu,
               "diffmst_tpu/kernels/comp_fused.py:167 (compressor_fused_gain VJP, :167-176)"),
         entry("K3", "release_min_scan", scan_cu,

@@ -1,7 +1,9 @@
-"""The CSV metric sink (port of ``diffmst_tpu/callbacks/metrics.py::CSVLogger``).
+"""Scalar metric sinks: CSV always, wandb when available.
 
-The other callbacks of the JAX package (``WandbLogger``, the audio and
-plotting callbacks) are not ported yet: ROADMAP Queue 1, item 12.
+Port of ``diffmst_tpu/callbacks/metrics.py``. The reference logs through
+Lightning's WandbLogger; ``wandb`` is optional (not a dependency), so
+``WandbLogger`` imports it when built and, as JAX's does, logs nothing
+where it is missing or its ``init`` fails.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ import csv
 import os
 from typing import Dict, Optional
 
-__all__ = ["CSVLogger"]
+__all__ = ["CSVLogger", "WandbLogger"]
 
 
 class CSVLogger:
@@ -57,3 +59,19 @@ class CSVLogger:
         with open(self.path, "a", newline="") as f:
             w = csv.DictWriter(f, fieldnames=self._fieldnames, extrasaction="ignore")
             w.writerow(row)
+
+
+class WandbLogger:
+    def __init__(self, project: str = "DiffMST", **init_kwargs) -> None:
+        try:
+            import wandb
+
+            self._run = wandb.init(project=project, **init_kwargs)
+            self._wandb = wandb
+        except Exception:  # noqa: BLE001 -- JAX's: a missing or failing wandb logs nothing
+            self._run = None
+            self._wandb = None
+
+    def on_log(self, tag: str, metrics: Dict[str, float]) -> None:
+        if self._run is not None:
+            self._wandb.log({f"{tag}/{k}": v for k, v in metrics.items()})

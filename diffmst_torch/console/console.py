@@ -124,8 +124,10 @@ class AdvancedMixConsole:
     reverb_num_samples: int = 65536
     reverb_num_taps: int = 1023
     # Compressor smoother (ops/compressor.py): "auto" (= "fused", kernel K2),
-    # "scan" (kernel K1), "fsm" (the reference's circular FFT smoother), or
-    # "decoupled" (attack and release: K3, then K1). The JAX console's
+    # "scan" (kernel K1), "fsm" (the reference's circular FFT smoother),
+    # "decoupled" (attack and release: K3, then K1), or "ballistics" (the
+    # exact branching attack and release, one sequential kernel; its
+    # backward K4's backward kernel). The JAX console's
     # Pallas names take the port's kernel for the same path: "scan_pallas"
     # is "scan", "fused_pallas" is "fused", "decoupled_pallas" is
     # "decoupled", and so are their "_interpret" twins.

@@ -6,9 +6,12 @@
   * K3 ``scan1p.release_min_scan`` — the decoupled compressor's release
     min-scan (``csrc/scan1p.cu``);
   * K5 ``iir_fused.sosfilt`` — the causal biquad cascade
-    (``csrc/iir_fused.cu``).
+    (``csrc/iir_fused.cu``);
+  * ``smoother.ballistics`` — the branching attack/release smoother
+    (``csrc/ballistics.cu``), whose backward is K1's with a per-sample
+    alpha (K4's).
 
-Each has its backward kernel. Sources build at first use (``_build.py``);
+K1-K5 have their backward kernels. Sources build at first use (``_build.py``);
 importing this package builds nothing.
 """
 
@@ -20,8 +23,11 @@ from diffmst_torch.kernels.scan1p import (
     release_min_scan,
     release_min_scan_plain,
 )
+from diffmst_torch.kernels.smoother import ballistics, ballistics_plain
 
 __all__ = [
+    "ballistics",
+    "ballistics_plain",
     "onepole_core",
     "onepole_core_plain",
     "compressor_fused_gain",

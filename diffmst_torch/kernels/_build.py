@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_kernels", "load_library", "build_log",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diffmst_torch_kernels"
-SOURCES = ("scan1p.cu", "comp_fused.cu", "iir_fused.cu")
+SOURCES = ("scan1p.cu", "comp_fused.cu", "iir_fused.cu", "ballistics.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

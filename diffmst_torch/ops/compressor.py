@@ -14,7 +14,11 @@ lookahead and makeup gain. Smoothers:
   * ``"decoupled"`` — attack/release smoothing with a working release
     (``diffmst_tpu/ops/compressor.py::_smooth_decoupled``:147): the release
     min-scan, kernel K3 (``kernels/scan1p.py::release_min_scan``), then the
-    attack one-pole, K1.
+    attack one-pole, K1;
+  * ``"ballistics"`` — the exact branching attack/release smoother
+    (``diffmst_tpu/ops/compressor.py::_smooth_ballistics``:161): one
+    sequential kernel (``kernels/smoother.py``), its backward through
+    K4's backward kernel.
 
 The JAX package's names for its Pallas kernels (``diffmst_tpu/ops/
 compressor.py``:208, :214, :254) take the port's kernel for the same
@@ -24,8 +28,6 @@ function: ``"scan_pallas"`` and ``"scan_pallas_interpret"`` are ``"scan"``
 ``"decoupled"`` (K3, then K1). Interpret mode, the Pallas kernels' CPU
 emulation, has its counterpart in the wrappers' plain versions, which CPU
 tensors take.
-
-``"ballistics"`` (a sequential scan in JAX) is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 
 from diffmst_torch.kernels.comp_fused import compressor_fused_gain
 from diffmst_torch.kernels.scan1p import onepole_core, release_min_scan
+from diffmst_torch.kernels.smoother import ballistics
 
 __all__ = ["compressor", "compressor_gain_db"]
 
@@ -99,8 +102,8 @@ def compressor_gain_db(
     """Smoothed gain-reduction envelope in dB for flat (B, T) input.
 
     The envelope alone has no fused form, so ``"auto"`` takes K1 here
-    (``"scan"``). Only the decoupled smoothers read ``release_ms``; the
-    attack-only ones ignore it, as the reference does.
+    (``"scan"``). Only the decoupled and ballistics smoothers read
+    ``release_ms``; the attack-only ones ignore it, as the reference does.
     """
     x_db = 20.0 * torch.log10(torch.clamp(torch.abs(x), min=eps))
     g_c = _static_gain_db(x_db, threshold_db[:, None], ratio[:, None], knee_db[:, None])
@@ -116,10 +119,8 @@ def compressor_gain_db(
         y1 = release_min_scan(g_c.contiguous(), alpha_r.contiguous())
         return onepole_core(((1.0 - alpha_a)[:, None] * y1).contiguous(), alpha_a.contiguous())
     if smoother == "ballistics":
-        raise NotImplementedError(
-            "compressor smoother 'ballistics' is not ported yet (ROADMAP Queue 1); "
-            "use 'decoupled' for a working release, or 'auto', 'fused', 'scan' or 'fsm'"
-        )
+        alpha_r = _ballistics_coeff(release_ms, sample_rate)
+        return ballistics(g_c.contiguous(), alpha_a.contiguous(), alpha_r.contiguous())
     raise ValueError(f"unknown smoother: {smoother!r}")
 
 

@@ -16,6 +16,13 @@ System in place.
     "best" on the lowest validation loss (``utils.checkpoint.save_state``,
     with the ``next_epoch``/``step``/``steps_per_epoch`` meta); ``fit(resume=
     path)`` restores the System and starts at the meta's ``next_epoch``;
+  * profiling: with ``profile_steps`` (a range of batch indices within an
+    epoch) a ``torch.profiler`` trace starts before step
+    ``profile_steps.start`` and stops after step ``profile_steps.stop`` has
+    run (the card synchronized first), JAX's bounds; each epoch's trace is
+    a Chrome trace in ``profile_dir`` (``utils/profiler.py::trace``) that
+    ``utils/trace_ops.py`` reads. The System's ``system.*`` ranges
+    (``record_function``) are in it;
 
 Random streams (JAX splits one key per step; the port draws from
 ``torch.Generator``s, by these rules):
@@ -32,10 +39,9 @@ Random streams (JAX splits one key per step; the port draws from
   * ``validate`` and ``test``: as validation, from a training stream seeded
     ``seed``.
 
-Not ported yet (ROADMAP Queue 1, item 12): the mesh (``devices`` > 1),
+Not ported yet (ROADMAP Queue 1, item 12): the mesh (``devices`` > 1) and
 JAX's ``fused_steps`` (K steps in one device dispatch; here, CUDA graphs,
-once a measurement shows the host bounds the step) and ``profile_steps``
-(with ``utils/profiler.py``).
+once a measurement shows the host bounds the step).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ import torch
 from diffmst_torch.train.system import Batch, System
 from diffmst_torch.utils.checkpoint import load_meta, restore_state, save_state
 from diffmst_torch.utils.device import resolve_device
+from diffmst_torch.utils.profiler import trace
 
 __all__ = ["Trainer"]
 
@@ -155,12 +162,14 @@ class Trainer:
         callbacks: Optional[List] = None,
         mesh=None,
         seed: int = 42,
+        profile_steps: Optional[range] = None,
+        profile_dir: str = "profiles",
         ckpt_every_n_steps: Optional[int] = None,
         deterministic_val: bool = False,
         enable_checkpointing: bool = True,
         num_sanity_val_steps: int = 0,
     ) -> None:
-        """The JAX Trainer's arguments but ``fused_steps`` and the profiler's.
+        """The JAX Trainer's arguments but ``fused_steps``.
         ``num_sanity_val_steps`` defaults to 0 here, as in JAX; the CLI
         applies Lightning's 2."""
         if mesh is not None:
@@ -175,6 +184,8 @@ class Trainer:
         self.check_val_every_n_epoch = check_val_every_n_epoch
         self.callbacks = callbacks or []
         self.seed = seed
+        self.profile_steps = profile_steps
+        self.profile_dir = profile_dir
         self.ckpt_every_n_steps = ckpt_every_n_steps
         self.deterministic_val = deterministic_val
         self.enable_checkpointing = enable_checkpointing
@@ -208,8 +219,14 @@ class Trainer:
             t_sync = time.time()
             steps_since_sync = 0
 
-            for batch in _prefetch(dm.train_dataloader(), self.device):
+            tracing = None
+            for i, batch in enumerate(_prefetch(dm.train_dataloader(), self.device)):
+                if self.profile_steps and i == self.profile_steps.start:
+                    tracing = trace(self.profile_dir)
+                    tracing.__enter__()
                 metrics = system.train_step(batch, flags)
+                if tracing is not None and i == self.profile_steps.stop:
+                    tracing = self._end_trace(tracing, epoch)
                 n_steps += 1
                 steps_since_sync += 1
                 if n_steps % self.log_every_n_steps == 0:
@@ -231,6 +248,8 @@ class Trainer:
                     # dataloader has no mid-stream state); the optimizer and
                     # the step count carry over exactly
                     self._save("last", next_epoch=epoch)
+            if tracing is not None:  # the epoch ended inside the traced steps
+                self._end_trace(tracing, epoch)
             if metrics is not None and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             epoch_time = time.time() - t_epoch
@@ -252,6 +271,13 @@ class Trainer:
                 **{f"val/{name}": v for name, v in val_metrics.items()},
             })
         return system
+
+    def _end_trace(self, tracing, epoch: int) -> None:
+        """End the trace (``utils/profiler.py::trace``): the card
+        synchronized, its Chrome trace written into ``profile_dir``."""
+        tracing.__exit__(None, None, None)
+        r = self.profile_steps
+        print(f"profile: steps {r.start}-{r.stop} of epoch {epoch} traced into {self.profile_dir}", flush=True)
 
     # ------------------------------------------------------- checkpoints
     def _meta(self, next_epoch: int) -> Dict:

@@ -43,12 +43,9 @@ CLASS_ALIASES: Dict[str, str] = {
 }
 
 # The JAX package's objects that the port does not have yet, by the ROADMAP
-# item (Queue 1) that ports them.
-_NOT_PORTED: Dict[str, str] = {
-    "LogAudioCallback": "12",
-    "LogReferenceMix": "12",
-    "WandbLogger": "12",
-}
+# item (Queue 1) that ports them. Empty: every class a config can name is
+# ported (the trainer settings the port lacks are refused by main_torch.py).
+_NOT_PORTED: Dict[str, str] = {}
 
 
 class NotPortedError(ImportError):

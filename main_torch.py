@@ -49,7 +49,7 @@ def build_from_config(cfg: dict, device=None):
     clock = _Clock()
     from diffmst_torch.callbacks import CSVLogger
     from diffmst_torch.train import System, Trainer
-    from diffmst_torch.utils.config import instantiate
+    from diffmst_torch.utils.config import NotPortedError, instantiate
     from diffmst_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -82,6 +82,8 @@ def build_from_config(cfg: dict, device=None):
     for cb in trainer_cfg.get("callbacks", []) or []:
         try:
             callbacks.append(instantiate(cb))
+        except NotPortedError:
+            raise  # a callback of the JAX package that the port lacks is not dropped unsaid
         except (ImportError, AttributeError, TypeError):
             pass  # reference-only callbacks (ModelSummary etc.) are cosmetic
 

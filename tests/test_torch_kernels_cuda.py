@@ -13,7 +13,10 @@ counts that fill no warp. Tolerances: 1e-5 in dB on K1, K3 and K4 (both
 versions compose in float64 and round once), 1e-5 on K2's audio and 1e-5
 of K5's peak. The backward kernels are held against their plain versions
 at 1e-5 of each output's max-abs (K4's dalpha, per sample, too), and at
-1e-4 on the per-row sums (both add in float64, in another order).
+1e-4 on the per-row sums (both add in float64, in another order). The
+ballistics smoother's kernel is held at 1e-5 dB, its recorded coefficients
+and branches bitwise, and its backward (K4's backward kernel) as the
+others.
 """
 
 import numpy as np
@@ -235,6 +238,15 @@ def test_compressor_lookback_takes_more_than_65535_rows(card):
     _check_compressor_kernels(*_comp_case(card, 70000, 5, seed=16))
 
 
+def _call_records(prof) -> list:
+    """The card's records in a trace, but for the spin kernels of
+    ``torch.cuda._sleep`` that lead it: on an H100, a trace begun some
+    seconds after the last one ended can lose the first few records of the
+    card's activity (``scripts/trace_probe_torch.py``)."""
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name]
+
+
 def test_compressor_lookback_is_one_kernel_and_one_memset_a_call(card):
     """A trace of one call of K2 (with and without the envelope) and of its
     backward shows one kernel launch, one memset and no copy each."""
@@ -248,9 +260,12 @@ def test_compressor_lookback_is_one_kernel_and_one_memset_a_call(card):
     for fn in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):  # a trace after a pause can lose its first few records
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = _call_records(prof)
         memsets = [n for n in names if n.startswith("Memset")]
         assert len(memsets) == 1 and len(names) == 2 and not any(n.startswith("Memcpy") for n in names), names
 
@@ -506,9 +521,12 @@ def test_scan_lookback_is_one_kernel_and_one_memset_a_call(card):
                lambda: scan1p.onepole_core_backward(dy, a4, y4)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):  # a trace after a pause can lose its first few records
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = _call_records(prof)
         memsets = [n for n in names if n.startswith("Memset")]
         assert len(memsets) == 1 and len(names) == 2 and not any(n.startswith("Memcpy") for n in names), names
 
@@ -852,3 +870,53 @@ def test_bf16_model_step_through_k2_matches_plain(card, monkeypatch):
     assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
     for name in ("track", "master"):
         assert float((cot_k[name] - cot_p[name]).norm() / cot_p[name].norm()) <= 2e-2, name
+
+
+def _ballistics_inputs(gen, rows, t, dev):
+    """Gains in dB whose level alternates every 300 samples, attack 1-20 ms
+    and release 50-300 ms: both branches taken."""
+    level = torch.where((torch.arange(t) // 300) % 2 == 0, 1.0, 0.1)
+    g = (-40.0 * torch.rand(rows, t, generator=gen) * level).to(dev)
+    aa = torch.exp(-np.log(9.0) / (SR * (1.0 + 19.0 * torch.rand(rows, generator=gen)) / 1e3)).to(dev)
+    ar = torch.exp(-np.log(9.0) / (SR * (50.0 + 250.0 * torch.rand(rows, generator=gen)) / 1e3)).to(dev)
+    return g, aa, ar
+
+
+@pytest.mark.parametrize("rows,t", [(1, 1), (3, 31), (5, 32), (2, 33), (33, 10000), (64, 4099)])
+def test_ballistics_kernel_matches_plain(card, rows, t):
+    """The forward, and what it records for its backward, equal the plain
+    version's (both carry float64 and round once); one launch a call."""
+    import importlib
+
+    smoother = importlib.import_module("diffmst_torch.kernels.smoother")
+    g, aa, ar = _ballistics_inputs(torch.Generator().manual_seed(rows * t), rows, t, card)
+    before = smoother.ballistics.launches
+    y, a, attack = smoother._launch(g, aa, ar, record=True)
+    torch.cuda.synchronize()
+    assert smoother.ballistics.launches == before + 1
+    y_p, a_p, attack_p = smoother.ballistics_plain(g, aa, ar, record=True)
+    torch.testing.assert_close(y, y_p, rtol=0, atol=1e-5)
+    assert torch.equal(a, a_p) and torch.equal(attack, attack_p)
+    assert torch.equal(smoother._launch(g, aa, ar), y)
+
+
+def test_ballistics_backward_runs_k4_backward(card):
+    """Autograd through the kernel: one K4-bwd launch, gradients of g and
+    both alphas equal to the plain versions' at 1e-5 of each max-abs (1e-4
+    on the row sums)."""
+    import importlib
+
+    smoother = importlib.import_module("diffmst_torch.kernels.smoother")
+    g, aa, ar = _ballistics_inputs(torch.Generator().manual_seed(7), 33, 5000, card)
+    dy = torch.randn(33, 5000, generator=torch.Generator().manual_seed(8)).to(card)
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (g, aa, ar)]
+        before = scan1p.onepole_core_backward.launches_per_sample
+        (smoother._Ballistics.apply(*leaves, plain) * dy).sum().backward()
+        torch.cuda.synchronize()
+        assert scan1p.onepole_core_backward.launches_per_sample == before + (0 if plain else 1)
+        grads.append([leaf.grad for leaf in leaves])
+    for k, (got, want) in enumerate(zip(*grads)):
+        tol = (1e-5 if k == 0 else 1e-4) * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)

@@ -628,13 +628,6 @@ def test_compressor_fsm_and_gain_db_match_jax():
     _close(out, ref)
 
 
-@pytest.mark.parametrize("smoother", ["ballistics"])
-def test_compressor_unported_smoothers_raise(smoother):
-    x, p = _comp_inputs(5, t=1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.compressor(_t(x), SR, **{k: _t(v) for k, v in p.items()}, smoother=smoother)
-
-
 # ---------------------------------------------------------------- basic ops
 
 
