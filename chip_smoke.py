@@ -111,7 +111,18 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      kernel and K4-bwd; the console's gradients against the plain
      versions'), ``device_timer`` and ``Meter`` on a K2 call, and
      ``scripts/{compare,datasets,info,unet_separator_demo}_torch.py`` as
-     subprocesses.
+     subprocesses;
+ 18. fused: ``trainer.fused_steps`` (``diffmst_torch/train/fused.py``): at
+     full width, for ``naive.yaml`` and ``naive+tpu.yaml``, the learning
+     rate on a cosine over 16 steps and cuDNN deterministic, 8 eager
+     Method-1 steps twice from one snapshot, then the warm-up group and the
+     capture of a CUDA graph of 4 steps, then 2 replays from the same
+     snapshot, held against the eager steps (losses, parameters, BatchNorm
+     statistics, moments, generator, counters); sequential and fused
+     steps/s, the capture and instantiation times, peak memory; one replay
+     traced (K2 and K2-bwd counted from the card's records, the busy
+     share); then ``main_torch.py fit`` on ``naive+tpu.yaml`` with
+     ``trainer.fused_steps: 4`` over [cli]'s corpus, a subprocess.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -1133,31 +1144,18 @@ def synth_batch(seed: int):
                  torch.zeros(TRAIN_BS, 2, WINDOW))
 
 
-def _counters():
-    import importlib
-
-    from diffmst_torch.kernels import comp_fused, iir_fused, scan1p
-
-    smoother = importlib.import_module("diffmst_torch.kernels.smoother")
-    return {"K1": scan1p.onepole_core, "K1-bwd": scan1p.onepole_core_backward,
-            "K2": comp_fused.compressor_fused_gain, "K2-bwd": comp_fused.compressor_fused_backward,
-            "K3": scan1p.release_min_scan, "K3-bwd": scan1p.release_min_scan_backward,
-            "K5": iir_fused.sosfilt, "K5-bwd": iir_fused.sosfilt_backward,
-            "ballistics": smoother.ballistics}
-
-
 def reset_counts() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
-    _counters()["K1"].launches_per_sample = 0
-    _counters()["K1-bwd"].launches_per_sample = 0
+    from diffmst_torch.kernels import launch_counts, set_launch_counts
+
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
 
 
 def read_counts() -> dict:
-    counts = {k: fn.launches for k, fn in _counters().items()}
-    counts["K4"] = _counters()["K1"].launches_per_sample
-    counts["K4-bwd"] = _counters()["K1-bwd"].launches_per_sample
-    return counts
+    """Every kernel's launches since the last ``reset_counts``
+    (``diffmst_torch.kernels.launch_counts``)."""
+    from diffmst_torch.kernels import launch_counts
+
+    return launch_counts()
 
 
 def phase_training():
@@ -2139,12 +2137,12 @@ def _eval_in_process(d: pathlib.Path, ev, ckpt: pathlib.Path, ckpt_s: float) -> 
 
     def timed_run(*args, **kwargs):
         torch.cuda.synchronize()
-        k2 = _counters()["K2"].launches
+        k2 = read_counts()["K2"]
         t0 = time.perf_counter()
         out = run(*args, **kwargs)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        k2s.append(_counters()["K2"].launches - k2)
+        k2s.append(read_counts()["K2"] - k2)
         return out
 
     reset_counts()
@@ -2882,6 +2880,228 @@ def phase_observe(root: pathlib.Path, tmp: pathlib.Path, k2_ms: float) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ fused
+
+FUSED_K = 4  # Method-1 steps a CUDA graph replay (trainer.fused_steps)
+
+
+def _clone(obj):
+    """A copy of a nest of dicts, lists and tuples with each tensor cloned
+    where it lies."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_clone(v) for v in obj)
+    return obj
+
+
+def _state_parts(system) -> dict:
+    """The System's state in the parts [fused] compares: parameters,
+    BatchNorm statistics, the optimizer's moments (and step tensors)."""
+    opt = system.optimizer.state_dict()
+    moments = ([v for st in opt["state"].values() for v in st.values() if isinstance(v, torch.Tensor)]
+               if "state" in opt else opt["mu"] + opt["nu"])
+    params = {id(p) for p in system.params}
+    model = system.model
+    return {"parameters": [p.detach() for p in model.parameters()],
+            "statistics": [b for b in model.buffers() if id(b) not in params],
+            "moments": moments}
+
+
+def _fused_config(root: pathlib.Path, configs, name: str) -> dict:
+    """One configuration's [fused] checks at full width, cuDNN
+    deterministic (the MRSTFT frames overlap by half, so the STFT's
+    backward adds two values a sample in either order alike, and eager
+    steps are bitwise repeatable): 2 x K eager steps run twice from one
+    snapshot (eager's own spread), then the warm-up group and the capture,
+    then 2 groups of K replays from the same snapshot, held against the
+    eager runs; the steps/s, capture time and peak memory of each; one
+    replay traced. Returns the launches."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _fused_checks(root, configs, name)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _fused_checks(root: pathlib.Path, configs, name: str) -> dict:
+    import dataclasses
+
+    import main_torch
+    from diffmst_torch.train import Batch
+    from diffmst_torch.train.fused import FusedSteps
+    from diffmst_torch.train.system import lr_schedule
+    from diffmst_torch.utils.config import load_config
+    from torch.profiler import ProfilerActivity, profile
+
+    k = FUSED_K
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.chdir(root):
+        system, _, _ = main_torch.build_from_config(load_config([str(root / c) for c in configs]))
+    # the learning rate on a cosine over 4K steps: each update its own lr
+    system.config = dataclasses.replace(system.config, schedule="cosine", steps_per_epoch=4 * k, max_epochs=1)
+    system.lr_at = lr_schedule(system.config)
+    base = synth_batch(31)
+    batches = [Batch(torch.roll(base.tracks, 4099 * i, dims=-1).cuda(), base.instrument_id, base.stereo_info,
+                     base.track_padding.cuda(), base.ref_mix.cuda()) for i in range(2 * k)]
+    flags = system.effect_flags(0)
+    steps = FusedSteps(system, flags, k)  # torch.optim.Adam becomes capturable
+    launches = {}
+
+    def add(counts):
+        for key, v in counts.items():
+            launches[key] = launches.get(key, 0) + v
+
+    reset_counts()
+    system.train_step(batches[0], flags)  # the optimizer's state, before the snapshot
+    start = _clone(system.state_dict())
+    lrs = [system.lr_at(system.updates + i) for i in range(2 * k)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    def eager():
+        system.load_state_dict(start)
+        losses, wall, peak = timed(lambda: [system.train_step(b, flags)["loss"] for b in batches])
+        return [float(x) for x in losses], _clone(_state_parts(system)), system.generator.get_state(), wall, peak
+
+    runs = [eager(), eager()]
+    system.load_state_dict(start)
+    reserved_before = torch.cuda.memory_reserved()
+    (_, first_s, capture_peak) = timed(lambda: steps(batches[:k]))
+    reserved = torch.cuda.memory_reserved()
+    system.load_state_dict(start)
+    counters0 = (system.step, system.updates)
+
+    def replays():
+        got = []
+        for g in range(2):
+            got.append([{key: v.clone() for key, v in m.items()} for m in steps(batches[g * k:(g + 1) * k])])
+        return got
+
+    groups, fused_s, replay_peak = timed(replays)
+    losses = [float(m["loss"]) for group in groups for m in group]
+    counters = (system.step - counters0[0], system.updates - counters0[1])
+    (l0, s0, g0, eager_s, eager_peak), (l1, s1, g1, eager_s2, _) = runs
+
+    def worst(got, a, b):
+        """Per tensor: |got - a| and the eager spread |b - a|, of |a|
+        (norms); the worst ratio of the error to max(2 x spread, 1e-6)."""
+        ratio, err_max, spread_max = 0.0, 0.0, 0.0
+        for x, y, z in zip(got, a, b):
+            ref = max(float(y.double().norm()), 1e-30)
+            err = float((x.double() - y.double()).norm()) / ref
+            spread = float((z.double() - y.double()).norm()) / ref
+            ratio = max(ratio, err / max(2.0 * spread, 1e-6))
+            err_max, spread_max = max(err_max, err), max(spread_max, spread)
+        return ratio, err_max, spread_max
+
+    parts = _state_parts(system)
+    figures = {part: worst(parts[part], s0[part], s1[part]) for part in parts}
+    loss_ratio = max(abs(x - a) / max(2.0 * abs(b - a), 1e-6 * abs(a)) for x, a, b in zip(losses, l0, l1))
+    line(f"[fused] {name}: per-step losses, eager {l0}, eager again {l1}, replayed {losses}; lr a step {lrs}")
+    line(f"[fused] {name}: replay vs eager, of each tensor's norm (worst error, eager's worst spread, worst"
+         f" error / max(2 x spread, 1e-6)): " + "; ".join(
+             f"{part} {e:.3g}, {sp:.3g}, {r:.3g}" for part, (r, e, sp) in figures.items())
+         + f"; losses {loss_ratio:.3g}; generator state equal {torch.equal(system.generator.get_state(), g0)}"
+         f" (eager runs {torch.equal(g0, g1)}); step and updates +{counters}")
+    require(max(loss_ratio, *(r for r, _, _ in figures.values())) <= 1.0,
+            f"{name}: the replays within 2 x eager's spread or 1e-6 ({figures}, losses {loss_ratio})")
+    require(torch.equal(system.generator.get_state(), g0) and counters == (2 * k, 2 * k),
+            f"{name}: the generator and the counters after the replays ({counters})")
+    require(len(set(lrs)) == 2 * k, f"{name}: each update its own learning rate ({lrs})")
+
+    # one replay traced: K2 and K2-bwd from the card's records
+    batch_group = batches[:k]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPIN_LEAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(batch_group)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda and SPIN_KERNEL not in e.name]
+    k2 = sum("CompressorOp" in e.name for e in kernels)
+    k2_bwd = sum("CompressorBackwardOp" in e.name for e in kernels)
+    busy_us, end = 0.0, -np.inf  # the union of the records' intervals
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy_ms = busy_us / 1e3
+    launch_calls = sorted({e.name for e in prof.events() if e.device_type != cuda and "Graph" in e.name})
+    add(read_counts())
+    eager_rate, fused_rate = 2 * k / eager_s, 2 * k / fused_s
+    line(f"[fused] {name}, cuDNN deterministic: sequential {eager_rate:.3f} steps/s ({eager_s:.3f} and {eager_s2:.3f} s for"
+         f" {2 * k} steps), fused {fused_rate:.3f} steps/s ({fused_s:.3f} s for 2 replays of {k});"
+         f" the warm-up group and the capture {first_s:.3f} s (capture {steps.capture_s:.3f} s,"
+         f" instantiate {steps.instantiate_s:.3f} s);"
+         f" peak memory sequential {eager_peak / 2**30:.2f} GiB, warm-up and capture"
+         f" {capture_peak / 2**30:.2f} GiB, replays {replay_peak / 2**30:.2f} GiB; reserved before the"
+         f" warm-up {reserved_before / 2**30:.2f} GiB (the eager runs' cache), after the capture"
+         f" {reserved / 2**30:.2f} GiB (the cache handed back before and after it), of which the graph's pool"
+         f" {steps.pool_bytes / 2**30:.2f} GiB")
+    span_ms = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
+    line(f"[fused] {name}: one replay traced: {traced_s:.3f} s wall, the card busy {busy_ms:.1f} ms (the union"
+         f" of its records; {100.0 * busy_ms / (traced_s * 1e3):.1f}% of the wall, {100.0 * busy_ms / span_ms:.1f}%"
+         f" of the {span_ms:.1f} ms from its first record to its last), {len(kernels)} records, K2 {k2} and K2-bwd"
+         f" {k2_bwd} kernels ({4 * k} and {2 * k} expected); host calls {launch_calls}")
+    require(k2 == 4 * k and k2_bwd == 2 * k, f"{name}: the traced replay's K2 and K2-bwd kernels ({k2}, {k2_bwd})")
+    del steps, system, start, runs, groups, parts
+    return dict(launches=launches, eager_rate=eager_rate, fused_rate=fused_rate)
+
+
+def phase_fused(root: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """``fused_steps`` (``diffmst_torch/train/fused.py``): K = 4 Method-1
+    steps as one CUDA graph replay, at full width, for ``naive.yaml``
+    (float32, ``torch.optim.Adam``, capturable) and ``naive+tpu.yaml``
+    (bf16 compute, OptaxAdam with a bf16 first moment), each held against
+    eager steps across a per-step learning rate (``_fused_config``); then
+    ``main_torch.py fit`` with ``trainer.fused_steps: 4`` over [cli]'s
+    corpus, a subprocess (naive+tpu.yaml: 2 groups). Returns the phase's
+    launches."""
+    import yaml
+
+    phase_t0 = time.perf_counter()
+    launches = {}
+    for name, configs in (("naive.yaml", CLI_CONFIGS[:2] + CLI_CONFIGS[3:]), ("naive+tpu.yaml", TPU_CONFIGS)):
+        got = _fused_config(root, configs, name)
+        for key, v in got["launches"].items():
+            launches[key] = launches.get(key, 0) + v
+        torch.cuda.empty_cache()
+
+    corpus = tmp / "corpus"
+    p = tmp / "fused_fit.yaml"
+    p.write_text(yaml.safe_dump({
+        "trainer": {"max_epochs": 1, "log_every_n_steps": FUSED_K, "num_sanity_val_steps": 0,
+                    "check_val_every_n_epoch": 1000, "enable_checkpointing": False, "fused_steps": FUSED_K},
+        "data": {"init_args": {"track_root_dirs": [str(corpus)], "metadata_files": [str(corpus / "meta.yaml")],
+                               "num_examples_per_pass": 8 * FUSED_K, "num_train_passes": 1}}}))
+    configs = [*(str(root / c) for c in TPU_CONFIGS[:2]), str(root / "configs/data/synthetic-8.yaml"),
+               str(root / TPU_CONFIGS[2]), str(p)]
+    out, wall = _run_cli(root, ["main_torch.py", "fit", *(a for c in configs for a in ("-c", c))],
+                         "main_torch.py fit with trainer.fused_steps: 4")
+    n = _cli_numbers(out)
+    fused_lines = [ln for ln in out.splitlines() if ln.startswith("fused:")]
+    line(f"[fused] main_torch.py fit on naive+tpu.yaml, trainer.fused_steps {FUSED_K}, {2 * FUSED_K} steps:"
+         f" exit 0 in {wall:.1f} s; [train] steps/s {n['steps_per_sec']} (a line a group); losses {n['losses']};"
+         f" {fused_lines}; peak card memory {n['peak']} bytes")
+    require(len(n["steps_per_sec"]) == 2 and all(np.isfinite(x) for x in n["losses"]),
+            f"the fused fit: 2 logged groups, losses finite ({n})")
+    require(len(fused_lines) == 1, f"the fused fit captured one graph ({fused_lines})")
+    line(f"[fused] the phase: {time.perf_counter() - phase_t0:.1f} s; launches {launches}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, k, **extra):
     """The kernel's entry of the JSON line, with the achieved TB/s of the
     bytes its function must move; the kernel launches and memsets a call,
@@ -2932,6 +3152,8 @@ def main() -> int:
         recipe = phase_tpu_recipe(root, tmp)
         torch.cuda.empty_cache()
         observe = phase_observe(root, tmp, stats["compressor_fused_gain"]["ms"])
+        torch.cuda.empty_cache()
+        fused = phase_fused(root, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2950,15 +3172,16 @@ def main() -> int:
         causal ones), the CLI's steps, [feature-loss]'s steps and fx-bus
         requests, [param-est]'s remixes, [eval]'s requests, online
         iterations and exported requests, [tpu-recipe]'s steps and bf16
-        request, and [observe]'s profiled fit and ballistics steps."""
+        request, [observe]'s profiled fit and ballistics steps, and
+        [fused]'s eager steps and graph replays."""
         total = (serving[key] + training[key] + cli[key] + feature.get(key, 0) + param_est.get(key, 0)
-                 + evaluation.get(key, 0) + recipe.get(key, 0) + observe.get(key, 0))
+                 + evaluation.get(key, 0) + recipe.get(key, 0) + observe.get(key, 0) + fused.get(key, 0))
         return kernel_entry(name, source, replaces, total, stats[name],
                             launches_serving=serving[key], launches_training=training[key],
                             launches_cli=cli[key], launches_feature_loss=feature.get(key, 0),
                             launches_param_est=param_est.get(key, 0), launches_eval=evaluation.get(key, 0),
                             launches_tpu_recipe=recipe.get(key, 0), launches_observe=observe.get(key, 0),
-                            on_path=True, **extra)
+                            launches_fused=fused.get(key, 0), on_path=True, **extra)
 
     kernels = [
         entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),

@@ -28,10 +28,10 @@ class NaiveRandomMix(NamedTuple):
     master_bus_params: torch.Tensor
 
 
-def draw_mix_params(tracks: torch.Tensor, mix_console, generator: torch.Generator):
+def draw_mix_params(tracks: torch.Tensor, mix_console, generator: torch.Generator, device=None):
     """Uniform (0, 1) (track (bs, n, P_t), fx bus (bs, P_f), master bus
     (bs, P_m)) parameters, drawn on the generator's device in that order and
-    moved to the tracks' device."""
+    moved to ``device`` (default: the tracks')."""
     bs, num_tracks, _ = tracks.shape
     shapes = (
         (bs, num_tracks, mix_console.num_track_control_params),
@@ -39,7 +39,7 @@ def draw_mix_params(tracks: torch.Tensor, mix_console, generator: torch.Generato
         (bs, mix_console.num_master_bus_control_params),
     )
     return tuple(
-        torch.rand(s, generator=generator, device=generator.device).to(tracks.device)
+        torch.rand(s, generator=generator, device=generator.device).to(device or tracks.device)
         for s in shapes
     )
 

@@ -15,7 +15,7 @@ statistics, the heads and the outputs stay float32), ``remat_encoders``
 (each encoder recomputed whole in the backward pass), ``remat_blocks``
 (only the first N Cnn14 blocks), ``cnn_min_width`` and ``crop_nyquist_bin``.
 ``bn_axis_name`` (BatchNorm statistics across a device mesh) waits for the
-mesh (ROADMAP Queue 1, item 12).
+mesh (ROADMAP Queue 1, item 12e).
 """
 
 from __future__ import annotations
@@ -167,7 +167,7 @@ class MixStyleTransferModel(nn.Module):
         if bn_axis_name is not None:
             raise NotPortedError(
                 "bn_axis_name (BatchNorm statistics across a device mesh) is not ported to "
-                "diffmst_torch yet: ROADMAP Queue 1, item 12"
+                "diffmst_torch yet: ROADMAP Queue 1, item 12e"
             )
         if remat_encoders and remat_blocks:
             raise ValueError("use either remat_encoders or remat_blocks")

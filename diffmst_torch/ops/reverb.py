@@ -30,6 +30,8 @@ __all__ = [
     "fft_convolve",
     "reverb_noise_shape",
     "draw_reverb_noise",
+    "reverb_noise_seed",
+    "reverb_noise_from_seed",
     "noise_shaped_reverberation",
 ]
 
@@ -142,7 +144,17 @@ def draw_reverb_noise(generator: torch.Generator, shape: tuple, device: torch.de
     draw on the card without a host-side draw or copy. The same generator
     state gives the same noise on the same device.
     """
-    seed = int(torch.randint(0, 2**63 - 1, (), generator=generator, device=generator.device))
+    return reverb_noise_from_seed(reverb_noise_seed(generator), shape, device, dtype)
+
+
+def reverb_noise_seed(generator: torch.Generator) -> int:
+    """The 63-bit draw from ``generator`` that seeds one reverb noise."""
+    return int(torch.randint(0, 2**63 - 1, (), generator=generator, device=generator.device))
+
+
+def reverb_noise_from_seed(seed: int, shape: tuple, device: torch.device,
+                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The noise ``draw_reverb_noise`` gives for the draw ``seed``."""
     child = torch.Generator(device=device).manual_seed(seed)
     return torch.randn(shape, generator=child, device=device, dtype=dtype)
 

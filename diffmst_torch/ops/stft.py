@@ -11,6 +11,7 @@ or longer reflects again and again.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -29,7 +30,11 @@ def hann_window(n: int) -> np.ndarray:
 
 
 def _window(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(hann_window(n).copy()).to(like.device, like.real.dtype)
+    """``hann_window(n)`` as ``like``'s real dtype on its device, computed
+    there as NumPy computes it (float64, rounded to float32; bitwise on the
+    CPU): a step captured into a CUDA graph may copy nothing from the host."""
+    k = torch.arange(n, dtype=torch.float64, device=like.device)
+    return (0.5 - 0.5 * torch.cos(2.0 * math.pi * k / n)).float().to(like.real.dtype)
 
 
 def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
@@ -45,13 +50,14 @@ def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
     if left < t and right < t:
         lead = x.shape[:-1]
         return F.pad(x.reshape(1, -1, t), (left, right), mode="reflect").reshape(*lead, left + t + right)
-    pos = np.arange(-left, t + right)
+    # the index is made on x's device: no copy from the host
+    pos = torch.arange(-left, t + right, device=x.device)
     if t == 1:
-        idx = np.zeros_like(pos)
+        idx = torch.zeros_like(pos)
     else:
-        m = np.mod(pos, 2 * (t - 1))
-        idx = np.where(m < t, m, 2 * (t - 1) - m)
-    return x.index_select(-1, torch.from_numpy(idx).to(x.device))
+        m = torch.remainder(pos, 2 * (t - 1))
+        idx = torch.where(m < t, m, 2 * (t - 1) - m)
+    return x.index_select(-1, idx)
 
 
 def stft(

@@ -41,7 +41,12 @@ and Adam over one ravelled gradient vector (``optax.flatten``). The two
 layouts' checkpoints are not interchangeable: ``load_state_dict`` refuses
 the other one.
 
-Not ported: the mesh (ROADMAP Queue 1, item 12).
+An update's learning rate and OptaxAdam's bias corrections come from the
+host's counters, or from ``UpdateScalars`` (device tensors under a CUDA
+graph, which each replay refills: ``train/fused.py``, the Trainer's
+``fused_steps``).
+
+Not ported: the mesh (ROADMAP Queue 1, item 12e).
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ import dataclasses
 import json
 import math
 import os
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,7 +67,7 @@ from diffmst_torch.mixing.knowledge import REPO_ROOT, instrument_metadata, sampl
 from diffmst_torch.utils.audio import batch_stereo_peak_normalize
 from diffmst_torch.utils.device import DeviceLike, resolve_device
 
-__all__ = ["SystemConfig", "EffectFlags", "Batch", "System", "lr_schedule"]
+__all__ = ["SystemConfig", "EffectFlags", "Batch", "System", "UpdateScalars", "lr_schedule"]
 
 _ADAM_EPS = 1e-8  # optax.adam's and torch.optim.Adam's default
 
@@ -83,6 +88,17 @@ class Batch(NamedTuple):
     stereo_info: torch.Tensor  # (bs, max_tracks) int
     track_padding: torch.Tensor  # (bs, max_tracks) bool, True = padded
     ref_mix: torch.Tensor  # (bs, 2, seq_len) real reference (Method 2)
+
+
+class UpdateScalars(NamedTuple):
+    """What an optimizer update takes from the host's counters: the
+    learning rate and OptaxAdam's bias corrections 1 - b1^t, 1 - b2^t (in
+    float32, as optax takes them). Floats, or 0-dim float32 tensors on the
+    parameters' device that a CUDA graph reads at each replay."""
+
+    lr: Union[float, torch.Tensor]
+    bc1: Union[float, torch.Tensor]
+    bc2: Union[float, torch.Tensor]
 
 
 class EffectFlags(NamedTuple):
@@ -212,6 +228,15 @@ class System:
         self._mini_step = 0
         self._acc = None  # running mean of the accumulated gradients
 
+    def use_capturable_optimizer(self) -> None:
+        """Let ``torch.optim.Adam`` step on the card without the host
+        (``capturable``): its step counts move to the parameters' device and
+        it takes a tensor learning rate, as a CUDA graph needs. The bias
+        corrections are then computed on the card in float32, not on the host
+        in float64. ``OptaxAdam`` needs nothing."""
+        if not isinstance(self.optimizer, OptaxAdam):
+            _set_capturable(self.optimizer, True)
+
     @property
     def optimizer_layout(self) -> str:
         """Which optimizer state a checkpoint of this System holds."""
@@ -241,7 +266,9 @@ class System:
         }
 
     def load_state_dict(self, state: Dict) -> None:
-        """Restore a ``state_dict()`` in place, onto the parameters' device.
+        """Restore a ``state_dict()`` in place, onto the parameters' device:
+        every tensor the System already holds keeps its storage, so a CUDA
+        graph captured on it (``train/fused.py``) reads the restored state.
         A checkpoint whose optimizer layout (``optimizer_layout``: per-leaf
         or flat, the first moment's dtype) is not this System's raises."""
         # checkpoints written before the optimizer options held torch.optim.Adam's state
@@ -253,13 +280,20 @@ class System:
                 "the layouts are not interchangeable"
             )
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        if not _copy_adam_state(self.optimizer, state["optimizer"]):
+            capturable = not isinstance(self.optimizer, OptaxAdam) and self.optimizer.param_groups[0]["capturable"]
+            self.optimizer.load_state_dict(state["optimizer"])
+            if not isinstance(self.optimizer, OptaxAdam):  # this System's mode, whatever the writer's
+                _set_capturable(self.optimizer, capturable)
         self.step = int(state["step"])
         self.updates = int(state["updates"])
         self.notfinite_count = int(state["notfinite_count"])
         self._mini_step = int(state["mini_step"])
         acc = state["acc"]
-        self._acc = None if acc is None else [a.to(p.device) for a, p in zip(acc, self.params)]
+        if acc is None or self._acc is None:
+            self._acc = None if acc is None else [a.to(p.device) for a, p in zip(acc, self.params)]
+        else:
+            torch._foreach_copy_(self._acc, [a.to(p.device) for a, p in zip(acc, self.params)])
         self.generator.set_state(state["generator"])
 
     def effect_flags(self, epoch: int) -> EffectFlags:
@@ -436,14 +470,16 @@ class System:
 
     @torch.no_grad()
     @record_function("system.optimizer")
-    def apply_gradients(self, grad_norm: torch.Tensor) -> Dict[str, int]:
+    def apply_gradients(self, grad_norm: torch.Tensor,
+                        scalars: Optional[UpdateScalars] = None) -> Dict[str, int]:
         """The second half of a train step: optax's
         ``apply_if_finite(MultiSteps(chain(clip_by_global_norm, adam)))``
         on the gradients in ``.grad``, whose global norm is ``grad_norm``
         (``optax.flatten`` around the chain with ``flatten_optimizer``).
         After it, ``.grad`` holds the clipped gradients the optimizer took;
         with ``flatten_optimizer`` it took a clipped, ravelled copy, and
-        ``.grad`` keeps the unclipped ones."""
+        ``.grad`` keeps the unclipped ones. ``scalars`` replace the learning
+        rate and bias corrections of the counters (``update_scalars``)."""
         cfg = self.config
         metrics = {}
         grads = [p.grad for p in self.params]
@@ -474,9 +510,17 @@ class System:
         clip = grad_norm >= cfg.grad_clip
         torch._foreach_div_(grads, torch.where(clip, grad_norm, 1.0))
         torch._foreach_mul_(grads, torch.where(clip, cfg.grad_clip, 1.0).to(grad_norm.dtype))
-        lr = self.lr_at(self.updates)
+        if scalars is None:
+            scalars = self.update_scalars(self.updates, getattr(self.optimizer, "count", 0) + 1)
+            if grads[0].is_cuda and (isinstance(self.optimizer, OptaxAdam)
+                                     or self.optimizer.param_groups[0].get("capturable")):
+                # the card divides by a host float otherwise than by a device
+                # tensor: an eager step takes the scalars as a replay does
+                scalars = UpdateScalars(*(torch.full((), float(v), dtype=torch.float32, device=grads[0].device)
+                                          for v in scalars))
+        lr = scalars.lr
         if isinstance(self.optimizer, OptaxAdam):
-            self.optimizer.step(grads, lr)
+            self.optimizer.step(grads, lr, (scalars.bc1, scalars.bc2))
         else:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
@@ -484,21 +528,30 @@ class System:
         self.updates += 1
         return metrics
 
+    def update_scalars(self, updates: int, count: int) -> UpdateScalars:
+        """The scalars of the update after ``updates`` updates, OptaxAdam's
+        ``count``-th (torch.optim.Adam computes its own corrections)."""
+        if isinstance(self.optimizer, OptaxAdam):
+            return UpdateScalars(self.lr_at(updates), *self.optimizer.corrections(count))
+        return UpdateScalars(self.lr_at(updates), 1.0, 1.0)
+
     def train_step(
         self,
         batch: Batch,
         flags: EffectFlags,
         ref_params: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
         reverb_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        scalars: Optional[UpdateScalars] = None,
     ) -> Dict[str, torch.Tensor]:
         """One train step in place (JAX ``make_train_step``, system.py:541):
         parameters, BatchNorm statistics and optimizer state move on.
         ``ref_params`` (track, fx bus, master bus), normalized, replace the
-        reference mix's random draw, and ``reverb_noise`` the reverb's.
+        reference mix's random draw, ``reverb_noise`` the reverb's, and
+        ``scalars`` the update's learning rate and bias corrections.
         Returns the metrics: loss (and a dict loss's named terms), the two
         non-finite counts, grad_norm (and notfinite_count when skipping)."""
         metrics = self.gradients(batch, flags, ref_params, reverb_noise)
-        metrics.update(self.apply_gradients(metrics["grad_norm"]))
+        metrics.update(self.apply_gradients(metrics["grad_norm"], scalars))
         self.step += 1
         return metrics
 
@@ -558,14 +611,21 @@ class OptaxAdam:
     def layout(self) -> str:
         return self.describe(self.flat, self.mu[0].dtype)
 
+    def corrections(self, count: int) -> Tuple[float, float]:
+        """The bias corrections 1 - b1^count, 1 - b2^count in float32, as
+        optax takes decay ** count."""
+        return tuple(float(1.0 - torch.tensor(b, dtype=torch.float32) ** count) for b in (self.b1, self.b2))
+
     @torch.no_grad()
-    def step(self, grads, lr: float) -> None:
+    def step(self, grads, lr, corrections=None) -> None:
         """One update from ``grads`` (the clipped gradients, in the
-        state's layout) at learning rate ``lr``."""
+        state's layout) at learning rate ``lr``, with the bias
+        ``corrections`` (bc1, bc2) of this update (default: from the
+        count). ``lr`` and the corrections may be 0-dim tensors on the
+        gradients' device."""
         b1, b2 = self.b1, self.b2
         self.count += 1
-        # the bias corrections in float32, as optax takes decay ** count
-        bc1, bc2 = (float(1.0 - torch.tensor(b, dtype=torch.float32) ** self.count) for b in (b1, b2))
+        bc1, bc2 = self.corrections(self.count) if corrections is None else corrections
         b1_mu = float(torch.tensor(b1, dtype=self.mu[0].dtype))
         mu32 = torch._foreach_mul(grads, 1.0 - b1)
         torch._foreach_add_(mu32, torch._foreach_mul(self.mu, b1_mu))
@@ -597,6 +657,38 @@ class OptaxAdam:
                                  f"{tuple(live.shape)} {live.dtype}")
             live.copy_(saved)
         self.count = int(state["count"])
+
+
+def _set_capturable(optimizer: torch.optim.Adam, capturable: bool) -> None:
+    """Put ``torch.optim.Adam`` in or out of its capturable mode, its step
+    counts on the parameters' device or on the host as that mode wants."""
+    for group in optimizer.param_groups:
+        group["capturable"] = capturable
+    for p, state in optimizer.state.items():
+        if "step" in state:
+            state["step"] = state["step"].to(p.device if capturable else "cpu", torch.float32)
+
+
+def _copy_adam_state(optimizer, saved: Dict) -> bool:
+    """Copy a ``torch.optim.Adam`` state dict into the optimizer's live
+    state tensors and its groups' hyperparameters, where it holds a tensor
+    of the same shape for each; False (nothing copied) otherwise, or for
+    another optimizer."""
+    if not isinstance(optimizer, torch.optim.Adam):
+        return False
+    live = optimizer.state_dict()
+    if live["state"].keys() != saved["state"].keys() or len(live["param_groups"]) != len(saved["param_groups"]):
+        return False
+    pairs = [(live["state"][i][k], v) for i, st in saved["state"].items() for k, v in st.items()]
+    if not all(k in live["state"][i] for i, st in saved["state"].items() for k in st) or any(
+            a.shape != b.shape for a, b in pairs):
+        return False
+    with torch.no_grad():
+        for a, b in pairs:
+            a.copy_(b)
+    for group, saved_group in zip(optimizer.param_groups, saved["param_groups"]):
+        group.update({k: v for k, v in saved_group.items() if k not in ("params", "capturable")})
+    return True
 
 
 def _global_norm(tensors) -> torch.Tensor:

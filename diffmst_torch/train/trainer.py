@@ -17,12 +17,23 @@ System in place.
     with the ``next_epoch``/``step``/``steps_per_epoch`` meta); ``fit(resume=
     path)`` restores the System and starts at the meta's ``next_epoch``;
   * profiling: with ``profile_steps`` (a range of batch indices within an
-    epoch) a ``torch.profiler`` trace starts before step
-    ``profile_steps.start`` and stops after step ``profile_steps.stop`` has
-    run (the card synchronized first), JAX's bounds; each epoch's trace is
-    a Chrome trace in ``profile_dir`` (``utils/profiler.py::trace``) that
-    ``utils/trace_ops.py`` reads. The System's ``system.*`` ranges
-    (``record_function``) are in it;
+    epoch, of groups with ``fused_steps``) a ``torch.profiler`` trace
+    starts before step ``profile_steps.start`` and stops after step
+    ``profile_steps.stop`` has run (the card synchronized first), JAX's
+    bounds; each epoch's trace is a Chrome trace in ``profile_dir``
+    (``utils/profiler.py::trace``) that ``utils/trace_ops.py`` reads. The
+    System's ``system.*`` ranges (``record_function``) are in it;
+  * ``fused_steps`` K > 1: each group of K batches runs as one unit
+    (``train/fused.py``): on the card one replay of a CUDA graph of K
+    steps, built for each epoch's ``EffectFlags`` when first seen (the
+    flags only move forward, so the last flags' graph is freed then); on
+    the CPU the same staged steps eagerly. Batch order, random draws and
+    updates are those of K sequential steps; an epoch whose batches do not
+    fill its groups raises ``ValueError``, as JAX's does. The log and
+    checkpoint points are JAX's: after the group in which the step count
+    passes a multiple of ``log_every_n_steps`` (``ckpt_every_n_steps``),
+    with the group's last step's metrics. The prefetch thread holds a lock
+    around its copies, which a capture takes;
 
 Random streams (JAX splits one key per step; the port draws from
 ``torch.Generator``s, by these rules):
@@ -39,9 +50,7 @@ Random streams (JAX splits one key per step; the port draws from
   * ``validate`` and ``test``: as validation, from a training stream seeded
     ``seed``.
 
-Not ported yet (ROADMAP Queue 1, item 12): the mesh (``devices`` > 1) and
-JAX's ``fused_steps`` (K steps in one device dispatch; here, CUDA graphs,
-once a measurement shows the host bounds the step).
+Not ported yet (ROADMAP Queue 1, item 12e): the mesh (``devices`` > 1).
 """
 
 from __future__ import annotations
@@ -53,11 +62,12 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
 
+from diffmst_torch.train.fused import FusedSteps
 from diffmst_torch.train.system import Batch, System
 from diffmst_torch.utils.checkpoint import load_meta, restore_state, save_state
 from diffmst_torch.utils.device import resolve_device
@@ -82,14 +92,15 @@ def _to_batch(raw, device: torch.device) -> Batch:
     )
 
 
-def _prefetch(loader, device: torch.device, depth: int = 2) -> Iterator[Batch]:
+def _prefetch(loader, device: torch.device, depth: int = 2, lock=None) -> Iterator[Batch]:
     """Batches of ``loader`` on ``device``, made by a background thread.
 
     The thread walks the host dataloader (decode, loudness gating, buffer
     reloads, collate) and copies each batch to the device while the consumer
     runs steps; at most ``depth`` batches wait. A loader's exception is
     raised in the consumer. Copies go to the device's default stream, in
-    order with the steps.
+    order with the steps, each under ``lock`` where one is given (a CUDA
+    graph's capture holds it: no other thread may call the runtime then).
     """
     q: queue.Queue = queue.Queue(maxsize=depth)
     end = object()
@@ -108,7 +119,9 @@ def _prefetch(loader, device: torch.device, depth: int = 2) -> Iterator[Batch]:
             for raw in loader:
                 if stop.is_set():
                     return
-                put(_to_batch(raw, device))
+                with lock if lock is not None else contextlib.nullcontext():
+                    batch = _to_batch(raw, device)
+                put(batch)
             put(end)
         except BaseException as exc:  # noqa: BLE001 -- re-raised by the consumer
             put(exc)
@@ -168,13 +181,13 @@ class Trainer:
         deterministic_val: bool = False,
         enable_checkpointing: bool = True,
         num_sanity_val_steps: int = 0,
+        fused_steps: int = 1,
     ) -> None:
-        """The JAX Trainer's arguments but ``fused_steps``.
-        ``num_sanity_val_steps`` defaults to 0 here, as in JAX; the CLI
-        applies Lightning's 2."""
+        """The JAX Trainer's arguments. ``num_sanity_val_steps`` defaults to
+        0 here, as in JAX; the CLI applies Lightning's 2."""
         if mesh is not None:
             raise NotImplementedError(
-                "the device mesh is not ported to diffmst_torch yet: ROADMAP Queue 1, item 12"
+                "the device mesh is not ported to diffmst_torch yet: ROADMAP Queue 1, item 12e"
             )
         self.system = system
         self.datamodule = datamodule
@@ -190,7 +203,9 @@ class Trainer:
         self.deterministic_val = deterministic_val
         self.enable_checkpointing = enable_checkpointing
         self.num_sanity_val_steps = int(num_sanity_val_steps)
+        self.fused_steps = max(1, int(fused_steps))
         self.history: List[Dict[str, float]] = []
+        self._device_lock = threading.Lock()  # the prefetch copies against a capture
 
     @property
     def device(self) -> torch.device:
@@ -209,10 +224,17 @@ class Trainer:
             )
 
         best_val = float("inf")
+        k = self.fused_steps
+        fused: Optional[FusedSteps] = None  # the epoch's flags' steps, built when first seen
         for epoch in range(start_epoch, self.max_epochs):
             flags = system.effect_flags(epoch)
+            if k > 1 and (fused is None or fused.flags != flags):
+                if fused is not None:
+                    fused.release()  # the flags only move forward: its graph is done
+                fused = FusedSteps(system, flags, k, capture_lock=self._device_lock)
             t_epoch = time.time()
             n_steps = 0
+            logged_blocks = saved_blocks = 0
             metrics = None
             # steps are queued on the card without waiting; the log points
             # synchronize, and steps/s is the wall time over the whole window
@@ -220,16 +242,28 @@ class Trainer:
             steps_since_sync = 0
 
             tracing = None
-            for i, batch in enumerate(_prefetch(dm.train_dataloader(), self.device)):
+            batches = _prefetch(dm.train_dataloader(), self.device, lock=self._device_lock)
+            for i, group in enumerate(self._group_batches(batches)):
                 if self.profile_steps and i == self.profile_steps.start:
                     tracing = trace(self.profile_dir)
                     tracing.__enter__()
-                metrics = system.train_step(batch, flags)
+                if k > 1:
+                    captured = fused.graph is not None
+                    metrics = fused(group)[-1]
+                    batch = group[-1]
+                    if not captured and fused.graph is not None:
+                        print(f"fused: {k} steps a CUDA graph replay from epoch {epoch}'s group {i + 2} on,"
+                              f" captured in {fused.capture_s:.3f} s, instantiated in {fused.instantiate_s:.3f} s,"
+                              f" its pool {fused.pool_bytes / 2**30:.2f} GiB", flush=True)
+                else:
+                    metrics = system.train_step(group, flags)
+                    batch = group
                 if tracing is not None and i == self.profile_steps.stop:
                     tracing = self._end_trace(tracing, epoch)
-                n_steps += 1
-                steps_since_sync += 1
-                if n_steps % self.log_every_n_steps == 0:
+                n_steps += k
+                steps_since_sync += k
+                if n_steps // self.log_every_n_steps > logged_blocks:
+                    logged_blocks = n_steps // self.log_every_n_steps
                     host = {name: float(v) for name, v in metrics.items()}  # synchronizes
                     now = time.time()
                     sps = steps_since_sync / max(now - t_sync, 1e-9)
@@ -242,8 +276,9 @@ class Trainer:
                 if (
                     self.enable_checkpointing
                     and self.ckpt_every_n_steps
-                    and n_steps % self.ckpt_every_n_steps == 0
+                    and n_steps // self.ckpt_every_n_steps > saved_blocks
                 ):
+                    saved_blocks = n_steps // self.ckpt_every_n_steps
                     # a mid-epoch save: a resume restarts this epoch (the
                     # dataloader has no mid-stream state); the optimizer and
                     # the step count carry over exactly
@@ -271,6 +306,25 @@ class Trainer:
                 **{f"val/{name}": v for name, v in val_metrics.items()},
             })
         return system
+
+    def _group_batches(self, batches: Iterator[Batch]) -> Iterator[Union[Batch, List[Batch]]]:
+        """``fused_steps`` 1: the batches as they come. Otherwise lists of
+        K batches; batches left over at the epoch's end raise (JAX's
+        ``_group_batches``)."""
+        if self.fused_steps == 1:
+            yield from batches
+            return
+        group: List[Batch] = []
+        for b in batches:
+            group.append(b)
+            if len(group) == self.fused_steps:
+                yield group
+                group = []
+        if group:
+            raise ValueError(
+                f"epoch length not divisible by fused_steps={self.fused_steps}: {len(group)} "
+                "batches left over; set steps_per_epoch to a multiple of fused_steps"
+            )
 
     def _end_trace(self, tracing, epoch: int) -> None:
         """End the trace (``utils/profiler.py::trace``): the card

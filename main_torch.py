@@ -20,9 +20,9 @@ are relative to the working directory.
 ``export`` writes the serving graph of the config's model and console
 (``diffmst_torch/utils/export.py``; ``--num_tracks``, ``--analysis_len``,
 ``--render_bs``, the weights from ``--ckpt_path``) into ``--output``, by
-default ``serving_export``. More than one device and
-``trainer.fused_steps`` other than 1 are not ported yet (ROADMAP Queue 1,
-item 12).
+default ``serving_export``. ``trainer.fused_steps`` K runs K steps as one
+replay of a CUDA graph on the card (``diffmst_torch/train/fused.py``). More
+than one device is not ported yet (ROADMAP Queue 1, item 12e).
 """
 
 from __future__ import annotations
@@ -97,6 +97,7 @@ def build_from_config(cfg: dict, device=None):
         callbacks=callbacks,
         seed=seed,
         ckpt_every_n_steps=trainer_cfg.get("ckpt_every_n_steps", 500),
+        fused_steps=trainer_cfg.get("fused_steps", 1),
         enable_checkpointing=trainer_cfg.get("enable_checkpointing", True),
         deterministic_val=trainer_cfg.get("deterministic_val", False),
         # Lightning's pre-fit sanity check; the reference pins 2
@@ -155,19 +156,14 @@ class _Clock:
 
 def _check_ported(trainer_cfg: dict, dev: torch.device) -> None:
     """Refuse the trainer settings the port lacks: more than one device
-    (``trainer.mesh``, ``devices`` > 1) and ``fused_steps`` other than 1."""
+    (``trainer.mesh``, ``devices`` > 1)."""
     devices = trainer_cfg.get("devices", 1)
     if devices in ("auto", -1):
         devices = torch.cuda.device_count() if dev.type == "cuda" else 1
     if trainer_cfg.get("mesh") or (isinstance(devices, int) and devices > 1):
         raise NotImplementedError(
             "training on more than one device is not ported to diffmst_torch yet: "
-            "ROADMAP Queue 1, item 12"
-        )
-    if trainer_cfg.get("fused_steps", 1) != 1:
-        raise NotImplementedError(
-            "trainer.fused_steps (K steps in one device dispatch, CUDA graphs on the card) "
-            "is not ported to diffmst_torch yet: ROADMAP Queue 1, item 12"
+            "ROADMAP Queue 1, item 12e"
         )
 
 

@@ -16,8 +16,9 @@
     with an overlay of paths and sizes (embed 32, n_fft 2048, hop 128, Cnn14
     width 4, 1 layer, 4 heads, MRSTFT at 512, length 32,768), in full
     float32 (TF32 off), and without ``--device`` (no card here): an error;
-  * what the port lacks (more than one device, ``fused_steps`` other than
-    1) refused, naming its ROADMAP item;
+  * what the port lacks (more than one device) refused, naming its ROADMAP
+    item; the trainer flags of the YAML (``fused_steps`` among them)
+    reaching the Trainer;
   * the config registry's class paths, ``System``'s flat keywords and the
     CSV sink against the JAX package's.
 
@@ -333,12 +334,27 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, corpus):  # noqa: F811
             main_torch.main([command, *cfg])
 
 
-@pytest.mark.parametrize("trainer", [{"devices": 2}, {"mesh": {"data": 2}}, {"fused_steps": 2}],
-                         ids=["devices", "mesh", "fused_steps"])
+@pytest.mark.parametrize("trainer", [{"devices": 2}, {"mesh": {"data": 2}}], ids=["devices", "mesh"])
 def test_cli_refuses_what_is_not_ported(trainer):
     with pytest.raises(NotImplementedError, match="item 12"):
         main_torch.build_from_config({"trainer": trainer}, "cpu")
-    main_torch._check_ported({"devices": 1, "fused_steps": 1}, torch.device("cpu"))
+    main_torch._check_ported({"devices": 1, "fused_steps": 2}, torch.device("cpu"))
+
+
+def test_cli_trainer_flag_passthrough():
+    """trainer.{enable_checkpointing, deterministic_val, fused_steps,
+    num_sanity_val_steps} of the YAML reach the Trainer, as JAX's
+    (``tests/test_cli.py::test_cli_trainer_flag_passthrough``); unset, the
+    sanity check takes Lightning's 2."""
+    cfg = {"model": {"init_args": {
+        "model": {"class_path": "diffmst_tpu.models.MixStyleTransferModel.build", "init_args": TINY},
+        "mix_console": {"class_path": "mst.modules.AdvancedMixConsole", "init_args": {}},
+        "loss": {"class_path": "auraloss.freq.MultiResolutionSTFTLoss"}}}}
+    flags = dict(enable_checkpointing=False, deterministic_val=True, fused_steps=2, num_sanity_val_steps=0)
+    trainer = main_torch.build_from_config({**cfg, "trainer": flags}, "cpu")[2]
+    assert {k: getattr(trainer, k) for k in flags} == flags
+    trainer = main_torch.build_from_config(cfg, "cpu")[2]
+    assert (trainer.fused_steps, trainer.num_sanity_val_steps) == (1, 2)
 
 
 def test_registry_model_follows_the_seed():

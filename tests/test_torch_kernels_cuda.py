@@ -16,7 +16,10 @@ at 1e-5 of each output's max-abs (K4's dalpha, per sample, too), and at
 1e-4 on the per-row sums (both add in float64, in another order). The
 ballistics smoother's kernel is held at 1e-5 dB, its recorded coefficients
 and branches bitwise, and its backward (K4's backward kernel) as the
-others.
+others. The fused steps (``train/fused.py``): two replays of a CUDA graph
+of 2 toy-width Method-1 steps against 4 eager steps (bitwise, cuDNN
+deterministic; also with the fx bus), a capture that fails raising, and
+``release`` handing the graph's pool back (``-k fused``).
 """
 
 import numpy as np
@@ -920,3 +923,142 @@ def test_ballistics_backward_runs_k4_backward(card):
     for k, (got, want) in enumerate(zip(*grads)):
         tol = (1e-5 if k == 0 else 1e-4) * float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def _fused_system(card, **config):
+    """A toy-width Method-1 System on the card (embed 32, one layer, Cnn14
+    width 4, hop 128) whose lr follows a cosine over six steps: each update
+    has its own learning rate and bias corrections."""
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.losses import MultiResolutionSTFTLoss
+    from diffmst_torch.models import MixStyleTransferModel
+    from diffmst_torch.train import System, SystemConfig
+
+    model = MixStyleTransferModel.build(embed_dim=32, num_layers=1, nhead=4, hop_length=128, cnn_base_width=4,
+                                        device=card, generator=torch.Generator().manual_seed(2))
+    cfg = SystemConfig(lr=1e-3, schedule="cosine", steps_per_epoch=6, max_epochs=1, **config)
+    # the loss's frames overlap by half: two atomic additions a sample in the
+    # STFT's backward, whose sum does not depend on their order
+    return System(model, AdvancedMixConsole(SR), MultiResolutionSTFTLoss(fft_sizes=(512, 2048),
+                  hop_sizes=(256, 1024), win_lengths=(512, 2048)), cfg,
+                  generator=torch.Generator().manual_seed(3), device=card)
+
+
+def _fused_batches(card, n):
+    from diffmst_torch.train import Batch
+
+    gen = torch.Generator().manual_seed(4)
+    ids = torch.zeros(2, 2, dtype=torch.int32)
+    return [Batch((0.1 * torch.randn(2, 2, 32768, generator=gen)).to(card), ids, ids,
+                  torch.zeros(2, 2, dtype=torch.bool, device=card), torch.zeros(2, 2, 32768, device=card))
+            for _ in range(n)]
+
+
+def _clone(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_clone(v) for v in obj)
+    return obj
+
+
+def _flat_state(system):
+    sd = system.state_dict()
+    opt = sd["optimizer"]
+    moments = ([t for st in opt["state"].values() for t in st.values()] if "state" in opt
+               else opt["mu"] + opt["nu"])
+    return list(sd["model"].values()) + moments
+
+
+@pytest.mark.parametrize("config", [{}, {"adam_mu_dtype": "bfloat16"}, {"active_fx_bus_epoch": 0}],
+                         ids=["torch_adam", "optax_bf16_mu", "fx_bus"])
+def test_fused_replay_equals_eager_steps(card, monkeypatch, config):
+    """Two replays of a K = 2 graph (``train/fused.py``) equal four eager
+    ``train_step`` calls from the same state, across a per-step learning
+    rate (a learning rate or bias correction baked in at capture would
+    differ by a whole step's update), and with the fx bus (two reverb
+    noises a step, from seeds the group stages in a sequential step's
+    order, into static buffers): losses, parameters, BatchNorm
+    statistics, moments and the generator within twice the spread of two
+    eager runs, or 1e-6 of each tensor's max-abs (cuDNN deterministic, the
+    eager runs are bitwise equal); the counters advance by 4 and K2 and
+    K2-bwd by 16 and 8 launches. The state is restored in place between
+    runs (``System.load_state_dict``)."""
+    from diffmst_torch.train.fused import FusedSteps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    system = _fused_system(card, **config)
+    flags = system.effect_flags(0)
+    steps = FusedSteps(system, flags, 2)  # torch.optim.Adam becomes capturable
+    batches = _fused_batches(card, 4)
+    system.train_step(batches[0], flags)  # the optimizer's state exists before the snapshot
+    start = _clone(system.state_dict())
+
+    def eager():
+        system.load_state_dict(start)
+        losses = [float(system.train_step(b, flags)["loss"]) for b in batches]
+        return losses, _clone(_flat_state(system)), system.generator.get_state()
+
+    runs = [eager(), eager()]
+    system.load_state_dict(start)
+    steps(batches[:2])  # the warm-up group, then the capture
+    assert steps.graph is not None
+    system.load_state_dict(start)
+    before = (comp_fused.compressor_fused_gain.launches, comp_fused.compressor_fused_backward.launches)
+    losses = [float(m["loss"]) for group in (batches[:2], batches[2:]) for m in steps(group)]
+    torch.cuda.synchronize()
+    after = (comp_fused.compressor_fused_gain.launches, comp_fused.compressor_fused_backward.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (16, 8)
+    assert (system.step, system.updates) == (5, 5)
+    (l0, s0, g0), (l1, s1, _) = runs
+    assert torch.equal(system.generator.get_state(), g0)
+    for got, a, b in zip(losses, l0, l1):
+        assert abs(got - a) <= max(2 * abs(a - b), 1e-6 * abs(a)), (got, a, b)
+    for got, a, b in zip(_flat_state(system), s0, s1):
+        spread = float((a.double() - b.double()).abs().max())
+        err = float((got.double() - a.double()).abs().max())
+        assert err <= max(2 * spread, 1e-6 * float(a.double().abs().max())), (err, spread)
+
+
+def test_fused_capture_failure_raises(card, monkeypatch):
+    """A step that synchronizes with the host cannot be captured: the call
+    raises and leaves no graph; it runs no eager steps in the graph's
+    place."""
+    from diffmst_torch.train.fused import FusedSteps
+
+    system = _fused_system(card)
+    flags = system.effect_flags(0)
+    steps = FusedSteps(system, flags, 2)
+    loss = system.loss
+
+    def syncing_loss(pred, target):
+        out = loss(pred, target)
+        torch.cuda.synchronize()
+        return out
+
+    system.loss = syncing_loss
+    batches = _fused_batches(card, 2)
+    with pytest.raises(RuntimeError):
+        steps(batches)  # the warm-up runs; the capture fails
+    assert steps.graph is None and system.step == 2
+
+
+def test_fused_release_frees_the_graph_pool(card):
+    """``FusedSteps.release`` (the Trainer's, when the epoch's flags move
+    on) resets the graph and hands its private pool back to the card."""
+    from diffmst_torch.train.fused import FusedSteps
+
+    system = _fused_system(card)
+    flags = system.effect_flags(0)
+    steps = FusedSteps(system, flags, 2)
+    batches = _fused_batches(card, 2)
+    steps(batches)  # the warm-up group, then the capture
+    steps(batches)  # a replay
+    torch.cuda.synchronize()
+    assert steps.graph is not None and steps.pool_bytes > 0
+    reserved = torch.cuda.memory_reserved()
+    steps.release()
+    assert steps.graph is None
+    assert torch.cuda.memory_reserved() <= reserved - steps.pool_bytes
