@@ -122,7 +122,16 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      steps/s, the capture and instantiation times, peak memory; one replay
      traced (K2 and K2-bwd counted from the card's records, the busy
      share); then ``main_torch.py fit`` on ``naive+tpu.yaml`` with
-     ``trainer.fused_steps: 4`` over [cli]'s corpus, a subprocess.
+     ``trainer.fused_steps: 4`` over [cli]'s corpus, a subprocess;
+ 19. mesh: the device mesh (``diffmst_torch/parallel``) on the one card: a
+     single-process step at the reference recipe, then two ranks over gloo
+     (``parallel.launch``) at dp = 2 and at dp = 1 x mp = 2, each rank's
+     step held against it (loss, grad_norm, gradients, BatchNorm running
+     statistics) with 4 K2 and 2 K2-bwd launches a step in each rank, and
+     steps/s and peak memory a rank; ``main_torch.py fit`` with
+     ``trainer.devices: 2`` refused with JAX's message; a one-rank NCCL
+     ``trainer.mesh: {dp: 1}`` fit with ``fused_steps: 4`` against the fit
+     without the mesh.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -3102,6 +3111,223 @@ def phase_fused(root: pathlib.Path, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ mesh
+
+MESH_STEPS = 2  # timed steps a rank, after the compared one
+
+
+def _flat_grads(system) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1) for p in system.params])
+
+
+def _running_stats(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+
+
+def _mesh_system(dev, mesh=None, sharded=False):
+    """[training]'s System at full width, seeded as there (weights 0,
+    generator 1); with ``sharded``, track-parallel over ``mesh``."""
+    from diffmst_torch.console import AdvancedMixConsole
+    from diffmst_torch.losses import MultiResolutionSTFTLoss
+    from diffmst_torch.models import MixStyleTransferModel
+    from diffmst_torch.train import System, SystemConfig
+
+    on = mesh if sharded else None
+    model = MixStyleTransferModel.build(generator=torch.Generator().manual_seed(0), device=dev,
+                                        bn_axis_name=("dp", "mp") if sharded else None)
+    console = AdvancedMixConsole(SR, **CONSOLE_RANGES, device=str(dev), mesh=on)
+    return System(model, console, MultiResolutionSTFTLoss(**MRSTFT), SystemConfig(),
+                  generator=torch.Generator().manual_seed(1), device=dev, mesh=on)
+
+
+def mesh_rank(ref_path: str) -> dict:
+    """One rank of [mesh] (``diffmst_torch.parallel.launch``, two ranks on
+    the one card over gloo): at dp = 2, then at dp = 1 x mp = 2 (the
+    track-parallel System, console and BatchNorm), one Method-1 step on
+    [training]'s batch from the seeded weights, held against the
+    single-process step saved in ``ref_path``, then MESH_STEPS timed
+    steps. Each step's kernel launches are this rank's."""
+    from diffmst_torch import parallel
+    from diffmst_torch.utils.device import use_full_float32
+
+    use_full_float32()
+    torch.backends.cudnn.deterministic = True
+    dev = parallel.rank_device()
+    ref = torch.load(ref_path, mmap=True)
+    ref_grads = ref["grads"].to(dev)
+    out = {"rank": torch.distributed.get_rank(), "device": str(dev)}
+    for kind, (dp, mp) in (("dp", (2, 1)), ("mp", (1, 2))):
+        mesh = parallel.make_mesh(dp, mp)
+        system = _mesh_system(dev, mesh, sharded=mp > 1)
+        if mp == 1:
+            system.distribute(mesh)
+        t0 = time.perf_counter()
+        system.check_replicas()
+        replicas_s = time.perf_counter() - t0
+        batch = parallel.shard_batch(synth_batch(11), mesh)
+        batch = type(batch)(*(t.to(dev) for t in batch))
+        flags = system.effect_flags(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        metrics = system.gradients(batch, flags)
+        torch.cuda.synchronize()
+        first = read_counts()
+        grads = _flat_grads(system)
+        grad_rel = float(torch.linalg.vector_norm((grads - ref_grads).double())
+                         / torch.linalg.vector_norm(ref_grads.double()))
+        del grads
+        stats_rel = max(float((v.double().cpu() - ref["stats"][k].double()).abs().max()
+                              / ref["stats"][k].double().abs().max()) for k, v in _running_stats(system.model).items())
+        system.apply_gradients(metrics["grad_norm"])
+        system.step += 1
+        walls, counts = [], [first]
+        for _ in range(MESH_STEPS):
+            reset_counts()
+            t0 = time.perf_counter()
+            m = system.train_step(batch, flags)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts.append(read_counts())
+            if not np.isfinite(float(m["loss"])):
+                raise RuntimeError(f"check failed: [mesh] {kind} rank loss not finite")
+        out[kind] = dict(mesh=dict(mesh.shape), coordinate=mesh.coordinate, loss=float(metrics["loss"]),
+                         grad_norm=float(metrics["grad_norm"]), grad_rel=grad_rel, stats_rel=stats_rel,
+                         counts=counts, walls=walls, peak=torch.cuda.max_memory_allocated(dev),
+                         replicas_s=replicas_s, local_batch=tuple(batch.tracks.shape))
+        del system, batch, metrics, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def _csv_train_losses(root: pathlib.Path, since: int):
+    """The train rows' losses that ``main_torch.py`` logged into
+    logs/metrics.csv after its first ``since`` rows, at full precision;
+    and the row count."""
+    import csv
+
+    path = root / "logs" / "metrics.csv"
+    rows = list(csv.DictReader(open(path))) if path.exists() else []
+    return [float(r["loss"]) for r in rows[since:] if r["tag"] == "train"], len(rows)
+
+
+# cuDNN deterministic for a bitwise comparison of two fits (the CLI leaves
+# it to cuDNN); the command line as the user types it otherwise
+DETERMINISTIC_CLI = ("import runpy, sys, torch; torch.backends.cudnn.deterministic = True; "
+                     "sys.argv = sys.argv[1:]; runpy.run_path('main_torch.py', run_name='__main__')")
+
+
+def phase_mesh(root: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """The device mesh (``diffmst_torch/parallel``) on the one card: (a) a
+    single-process Method-1 step at [training]'s recipe (4 x 8 x 262,144,
+    naive.yaml's 190.9 M parameters, cuDNN deterministic), its loss,
+    grad_norm, gradients and BatchNorm running statistics kept; (b) dp = 2
+    and (c) dp = 1 x mp = 2, two ranks on the card over gloo (NCCL refuses
+    two ranks a device), each rank's first step held against (a), its K2
+    and K2-bwd launches counted, then steps/s and peak memory a rank; (d)
+    ``main_torch.py fit`` with ``trainer.devices: 2`` exits with JAX's
+    message and starts no rank; (e) ``main_torch.py fit`` with
+    ``trainer.mesh: {dp: 1}`` and ``trainer.fused_steps: 4`` (NCCL at one
+    rank: the collectives inside the CUDA graph) against the same fit
+    without the mesh, both cuDNN deterministic. Returns the phase's
+    launches (the reference step's and every rank's)."""
+    import yaml
+
+    from diffmst_torch import parallel
+
+    phase_t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    system = _mesh_system(torch.device("cuda"))
+    batch = synth_batch(11)
+    batch = type(batch)(*(t.cuda() for t in batch))
+    flags = system.effect_flags(0)
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = system.gradients(batch, flags)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    launches = dict(read_counts())
+    ref = {"grads": _flat_grads(system).cpu(), "stats": {k: v.cpu() for k, v in _running_stats(system.model).items()},
+           "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+    torch.backends.cudnn.deterministic = False
+    del system, batch, metrics
+    torch.cuda.empty_cache()
+    ref_path = tmp / "mesh_reference.pt"
+    torch.save(ref, ref_path)
+    line(f"[mesh] (a) one process: loss {ref['loss']:.7f}, grad_norm {ref['grad_norm']:.7g}, {ref_s:.3f} s,"
+         f" launches {launches}; reserved after freeing {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+    t0 = time.perf_counter()
+    ranks = parallel.launch(mesh_rank, 2, (str(ref_path),), backend="gloo")
+    launch_s = time.perf_counter() - t0
+    for kind, what in (("dp", "(b) dp = 2"), ("mp", "(c) dp = 1 x mp = 2")):
+        for r in ranks:
+            k = r[kind]
+            steps_per_s = len(k["walls"]) / sum(k["walls"])
+            line(f"[mesh] {what}, rank {r['rank']} at {k['coordinate']} on {r['device']} over gloo,"
+                 f" its batch {k['local_batch']}: loss {k['loss']:.7f} ({abs(k['loss'] / ref['loss'] - 1):.3g} off),"
+                 f" grad_norm {k['grad_norm']:.7g} ({abs(k['grad_norm'] / ref['grad_norm'] - 1):.3g} off), gradients"
+                 f" {k['grad_rel']:.3g} of their norm off, running statistics {k['stats_rel']:.3g} off; steps"
+                 f" 2-{1 + MESH_STEPS} {steps_per_s:.3f} steps/s ({', '.join(f'{w:.3f}' for w in k['walls'])} s),"
+                 f" peak {k['peak'] / 2**30:.2f} GiB (max_memory_allocated); replicas checked in"
+                 f" {k['replicas_s']:.3f} s; launches a step {k['counts']}")
+            require(abs(k["loss"] / ref["loss"] - 1) <= 1e-4, f"[mesh] {what} rank {r['rank']}: loss within 1e-4")
+            require(abs(k["grad_norm"] / ref["grad_norm"] - 1) <= 1e-3,
+                    f"[mesh] {what} rank {r['rank']}: grad_norm within 1e-3")
+            require(k["grad_rel"] <= 1e-3, f"[mesh] {what} rank {r['rank']}: gradients within 1e-3 of their norm")
+            require(k["stats_rel"] <= 1e-4, f"[mesh] {what} rank {r['rank']}: running statistics within 1e-4")
+            for i, c in enumerate(k["counts"]):
+                require(c["K2"] == 4 and c["K2-bwd"] == 2,
+                        f"[mesh] {what} rank {r['rank']} step {i + 1}: 4 K2 and 2 K2-bwd launches ({c})")
+                for key, v in c.items():
+                    launches[key] = launches.get(key, 0) + v
+    line(f"[mesh] (b) and (c): two ranks, {launch_s:.1f} s from spawn to exit")
+
+    corpus = tmp / "corpus"
+    data = {"track_root_dirs": [str(corpus)], "metadata_files": [str(corpus / "meta.yaml")],
+            "num_examples_per_pass": 8 * FUSED_K, "num_train_passes": 1}
+    trainer = {"max_epochs": 1, "log_every_n_steps": FUSED_K, "num_sanity_val_steps": 0,
+               "check_val_every_n_epoch": 1000, "enable_checkpointing": False, "fused_steps": FUSED_K}
+
+    def overlay(name, **extra):
+        p = tmp / name
+        p.write_text(yaml.safe_dump({"trainer": {**trainer, **extra}, "data": {"init_args": data}}))
+        return [a for c in [*(str(root / c) for c in CLI_CONFIGS), str(p)] for a in ("-c", c)]
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "main_torch.py", "fit", *overlay("mesh_devices.yaml", devices=2)],
+                          cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    said = (proc.stderr.strip().splitlines() or [""])[-1]
+    line(f"[mesh] (d) main_torch.py fit with trainer.devices: 2 on {torch.cuda.device_count()} card: exit"
+         f" {proc.returncode} in {wall:.1f} s: {said!r}")
+    require(proc.returncode != 0 and "trainer.devices=2 but only 1 present" in proc.stderr,
+            "[mesh] (d) trainer.devices: 2 on one card exits non-zero with JAX's message")
+    require("built:" not in proc.stdout and "[train]" not in proc.stdout, "[mesh] (d) no rank started")
+
+    fits = {}
+    for name, extra in (("without a mesh", {}), ("trainer.mesh: {dp: 1}", {"mesh": {"dp": 1}})):
+        _, since = _csv_train_losses(root, 0)
+        out, wall = _run_cli(root, ["-c", DETERMINISTIC_CLI, "main_torch.py", "fit",
+                                    *overlay("mesh_fit.yaml", **extra)], f"main_torch.py fit, {name}")
+        n = _cli_numbers(out)
+        losses, _ = _csv_train_losses(root, since)
+        fits[name] = losses
+        fused_lines = [ln for ln in out.splitlines() if ln.startswith("fused:")]
+        line(f"[mesh] (e) main_torch.py fit, {name}, trainer.fused_steps {FUSED_K}, {2 * FUSED_K} steps, cuDNN"
+             f" deterministic: exit 0 in {wall:.1f} s; losses {losses}; [train] steps/s {n['steps_per_sec']};"
+             f" {fused_lines}; peak card memory {n['peak']} bytes")
+        require(len(losses) == 2 and all(np.isfinite(losses)), f"[mesh] (e) {name}: 2 logged groups, finite")
+        require(len(fused_lines) == 1, f"[mesh] (e) {name}: one graph captured")
+    a, b = fits.values()
+    worst = max(abs(x / y - 1) for x, y in zip(b, a))
+    line(f"[mesh] (e) a one-rank NCCL mesh against no mesh: losses bitwise equal: {a == b}; largest"
+         f" relative difference {worst:.3g}")
+    require(worst <= 1e-6, "[mesh] (e) the one-rank mesh fit's losses equal the fit's without a mesh")
+    line(f"[mesh] the phase: {time.perf_counter() - phase_t0:.1f} s; launches {launches}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, k, **extra):
     """The kernel's entry of the JSON line, with the achieved TB/s of the
     bytes its function must move; the kernel launches and memsets a call,
@@ -3154,6 +3380,8 @@ def main() -> int:
         observe = phase_observe(root, tmp, stats["compressor_fused_gain"]["ms"])
         torch.cuda.empty_cache()
         fused = phase_fused(root, tmp)
+        torch.cuda.empty_cache()
+        mesh = phase_mesh(root, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3173,15 +3401,18 @@ def main() -> int:
         requests, [param-est]'s remixes, [eval]'s requests, online
         iterations and exported requests, [tpu-recipe]'s steps and bf16
         request, [observe]'s profiled fit and ballistics steps, and
-        [fused]'s eager steps and graph replays."""
+        [fused]'s eager steps and graph replays, and [mesh]'s steps (the
+        single-process one and each rank's)."""
         total = (serving[key] + training[key] + cli[key] + feature.get(key, 0) + param_est.get(key, 0)
-                 + evaluation.get(key, 0) + recipe.get(key, 0) + observe.get(key, 0) + fused.get(key, 0))
+                 + evaluation.get(key, 0) + recipe.get(key, 0) + observe.get(key, 0) + fused.get(key, 0)
+                 + mesh.get(key, 0))
         return kernel_entry(name, source, replaces, total, stats[name],
                             launches_serving=serving[key], launches_training=training[key],
                             launches_cli=cli[key], launches_feature_loss=feature.get(key, 0),
                             launches_param_est=param_est.get(key, 0), launches_eval=evaluation.get(key, 0),
                             launches_tpu_recipe=recipe.get(key, 0), launches_observe=observe.get(key, 0),
-                            launches_fused=fused.get(key, 0), on_path=True, **extra)
+                            launches_fused=fused.get(key, 0), launches_mesh=mesh.get(key, 0), on_path=True,
+                            **extra)
 
     kernels = [
         entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),
@@ -3192,7 +3423,8 @@ def main() -> int:
         # the ballistics smoother's
         kernel_entry("onepole_core_per_sample", scan_cu,
                      "diffmst_tpu/kernels/scan1p.py:111 (per-sample alpha, onepole_scan_tv:160)",
-                     serving["K4"] + training["K4"], stats["onepole_core_per_sample"], on_path=False),
+                     serving["K4"] + training["K4"] + mesh.get("K4", 0), stats["onepole_core_per_sample"],
+                     launches_mesh=mesh.get("K4", 0), on_path=False),
         entry("K4-bwd", "onepole_core_backward_per_sample", scan_cu,
               "diffmst_tpu/kernels/scan1p.py:183 (onepole_scan_tv VJP, :176-187)"),
         entry("ballistics", "ballistics", ball_cu,

@@ -6,6 +6,13 @@ normalized (0, 1) parameter vectors on the console's device: the CUDA device
 unless it was built with ``device="cpu"``. Per-track work runs on the
 flattened (batch * tracks) axis, so each EQ and compressor call handles every
 track at once.
+
+``AdvancedMixConsole(mesh=...)`` with an "mp" axis larger than 1 runs the
+per-track chain (input fader, EQ, compressor) on this rank's tracks and
+gathers its output along tracks before the panner; the panner, the fx bus
+and the master bus run on every track, replicated over mp (JAX's
+``console.py:279-300``: the chain under ``shard_map``, the rest global
+view). Each rank passes its dp row's whole batch and parameters.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 from diffmst_torch import ops
 from diffmst_torch.console import ranges as _ranges
 from diffmst_torch.console.ranges import ParamDict
+from diffmst_torch.parallel.mesh import assert_mesh_divisible, gather_tracks, track_slice
 from diffmst_torch.utils.device import resolve_device
 
 __all__ = ["ConsoleOutput", "BasicMixConsole", "AdvancedMixConsole"]
@@ -139,6 +147,9 @@ class AdvancedMixConsole:
     # run_diffmst(render_mode="streaming") renders with.
     eq_method: str = "fs"
     device: Optional[str] = None  # None: the CUDA device
+    # A (dp, mp) mesh (diffmst_torch/parallel): with mp > 1 the per-track
+    # chain runs on this rank's tracks (see the module docstring).
+    mesh: Optional[object] = None
 
     num_track_control_params: int = _ranges.NUM_TRACK_PARAMS
     num_fx_bus_control_params: int = _ranges.NUM_FX_BUS_PARAMS
@@ -235,13 +246,20 @@ class AdvancedMixConsole:
         fx bus, ``noise`` or ``generator`` feeds the reverb
         (``ops.noise_shaped_reverberation``)."""
         sr = self.sample_rate
-        x = self._track_chain(
-            tracks,
-            track_param_dict,
+        chain_kwargs = dict(
             use_track_input_fader=use_track_input_fader,
             use_track_eq=use_track_eq,
             use_track_compressor=use_track_compressor,
         )
+        chain_params = {k: track_param_dict[k] for k in ("input_fader", "parametric_eq", "compressor")}
+        mesh = self.mesh
+        if mesh is not None and mesh.shape["mp"] > 1:
+            assert_mesh_divisible(mesh, tracks.shape[0] * mesh.shape["dp"], tracks.shape[1],
+                                  "console track chain")
+            local = {k: {n: track_slice(v, mesh) for n, v in d.items()} for k, d in chain_params.items()}
+            x = gather_tracks(self._track_chain(track_slice(tracks, mesh), local, **chain_kwargs), mesh)
+        else:
+            x = self._track_chain(tracks, chain_params, **chain_kwargs)
         if use_track_panner:
             stems = ops.stereo_panner(x, sr, track_param_dict["stereo_panner"]["pan"])
         else:

@@ -55,11 +55,18 @@ __all__ = ["TrackExample", "MultitrackDataset", "MultitrackDataModule", "MixData
 
 
 def _process_shard() -> Tuple[int, int]:
-    """(rank, world size) of torch.distributed's group, else (0, 1)."""
+    """(host index, host count): songs are sharded by host, as JAX shards
+    them by process (one a host, ``jax.process_index()``), so that every
+    rank of a host reads the same global batches, whose rows (and tracks)
+    the mesh then splits. With torch.distributed's group: torchrun's node
+    (``GROUP_RANK``) of ``WORLD_SIZE // LOCAL_WORLD_SIZE`` (one host when
+    they are not set); else (0, 1)."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
+        world = dist.get_world_size()
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        return int(os.environ.get("GROUP_RANK", 0)), max(1, world // local)
     return 0, 1
 
 

@@ -10,7 +10,7 @@ distribution and feed the JAX draw to the port through the train step's
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,11 +28,15 @@ class NaiveRandomMix(NamedTuple):
     master_bus_params: torch.Tensor
 
 
-def draw_mix_params(tracks: torch.Tensor, mix_console, generator: torch.Generator, device=None):
+def draw_mix_params(tracks: torch.Tensor, mix_console, generator: torch.Generator, device=None,
+                    batch_size: Optional[int] = None):
     """Uniform (0, 1) (track (bs, n, P_t), fx bus (bs, P_f), master bus
     (bs, P_m)) parameters, drawn on the generator's device in that order and
-    moved to ``device`` (default: the tracks')."""
+    moved to ``device`` (default: the tracks'); ``batch_size`` rows instead
+    of the tracks' (a rank's share of a global batch draws the global
+    batch's)."""
     bs, num_tracks, _ = tracks.shape
+    bs = bs if batch_size is None else batch_size
     shapes = (
         (bs, num_tracks, mix_console.num_track_control_params),
         (bs, mix_console.num_fx_bus_control_params),

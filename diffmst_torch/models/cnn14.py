@@ -18,6 +18,19 @@ variance, so the update is written out, under ``no_grad``.
 ``use_batchnorm=False`` drops the blocks' BatchNorm layers (the Flax
 model's keyword of that name; a block is then conv -> ReLU).
 
+Across a device mesh (``diffmst_torch/parallel``), a train-mode BatchNorm
+takes the statistics of every rank's batch, as Flax's ``axis_name`` does
+(``diffmst_tpu/models/cnn14.py:29, :51``): over the dp axis always (JAX's
+jitted step sees the global batch) and over the axes ``bn_axis_name`` names
+(``("dp", "mp")``: the whole mesh, for the track-parallel System). The
+statistics come from the all-reduced per-channel sum and count, then the
+all-reduced sum of squared deviations from the shared mean (two passes), in
+float32 for a float32 or bf16 input and in float64 for a float64 one; the
+variance is biased and the running statistics move as above. The
+backward pass all-reduces the two sums of the cotangents the statistics
+take, as a synchronized BatchNorm's does. ``torch.nn.SyncBatchNorm`` is not
+used: it keeps the unbiased variance in its running statistics.
+
 The JAX package's compute options (``cnn14.py:29-30, :71-95``):
 
   * ``dtype`` (None: the parameters' dtype): the input is cast to it, the
@@ -43,9 +56,12 @@ import threading
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from diffmst_torch.parallel.mesh import bn_group
 
 __all__ = ["ConvBlock", "Cnn14", "batch_norm", "rematerialized", "cast_to"]
 
@@ -83,28 +99,96 @@ def cast_to(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> Optional
     return t if t is None or dtype is None else t.to(dtype)
 
 
-def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool, axis_name=None) -> torch.Tensor:
     """Flax's ``nn.BatchNorm(momentum=0.9)`` over the channel axis 1 of x,
     with ``bn``'s parameters and running statistics (see the module
     docstring). A bfloat16 or float16 x is normalized in float32 and the
-    result rounded to x's dtype."""
+    result rounded to x's dtype. In training under a bound mesh the
+    statistics are those of every rank along ``axis_name`` and dp."""
     if not train:
         return F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps
         )
+    group = bn_group(axis_name)
+    if group is not None:
+        mean, var, y = _GroupBatchNorm.apply(x, bn.weight, bn.bias, bn.eps, group)
+        if not getattr(_recomputing, "active", False):
+            _update_running(bn, mean, var)
+        return y
     if not getattr(_recomputing, "active", False):
         with torch.no_grad():
             wide = x.to(torch.promote_types(x.dtype, torch.float32))
             var, mean = torch.var_mean(wide, dim=(0, *range(2, x.ndim)), unbiased=False)
-            bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
-            bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+            _update_running(bn, mean, var)
     # batch statistics, biased variance; running statistics left alone
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
+@torch.no_grad()
+def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+    bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+
+
+class _GroupBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm on the statistics of a process group's batches:
+    (mean, biased variance, y). Forward: two passes, as the local path's
+    ``var_mean`` takes them: an all-reduce of the per-channel (sum, count),
+    then one of the sums of (x - mean)^2 (a one-pass E[x^2] - mean^2 loses
+    float32's digits where |mean| is far above the spread, as on magnitude
+    spectrograms). Backward: one all-reduce of the per-channel sums of dy
+    and of dy * (x - mean), which every rank's outputs hand the shared
+    statistics; dx from them, and the weight's and bias's gradients from
+    this rank's elements alone (the System sums those over the ranks with
+    the other gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        wide = torch.promote_types(x.dtype, torch.float32)
+        dims = (0, *range(2, x.ndim))
+        c = x.shape[1]
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        xw = x.to(wide)
+        stats = torch.cat([xw.sum(dims), xw.new_full((1,), x.numel() // c)])
+        dist.all_reduce(stats, group=group)
+        count = stats[c]
+        mean = stats[:c] / count
+        xmu = xw - mean.view(shape)
+        var = xmu.square().sum(dims)
+        dist.all_reduce(var, group=group)
+        var = var / count
+        invstd = torch.rsqrt(var + eps)
+        scale = (invstd * weight.to(wide)).view(shape)
+        y = (xmu * scale + bias.to(wide).view(shape)).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return mean, var, y
+
+    @staticmethod
+    def backward(ctx, _dmean, _dvar, dy):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        wide = mean.dtype
+        dims = (0, *range(2, x.ndim))
+        c = x.shape[1]
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        xmu = x.to(wide) - mean.view(shape)
+        dyw = dy.to(wide)
+        local = torch.cat([dyw.sum(dims), (dyw * xmu).sum(dims)])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        mean_dy = (sums[:c] / count).view(shape)
+        mean_dy_xmu = (sums[c:] / count).view(shape)
+        inv = invstd.view(shape)
+        dx = (dyw - mean_dy - xmu * (inv * inv) * mean_dy_xmu) * (inv * weight.to(wide).view(shape))
+        dweight = (local[c:] * invstd).to(weight.dtype)
+        dbias = local[:c].to(weight.dtype)
+        return dx.to(x.dtype), dweight, dbias, None, None
+
+
 class ConvBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, use_batchnorm: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, bn_axis_name=None):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False)
@@ -113,13 +197,14 @@ class ConvBlock(nn.Module):
             self.bn2 = nn.BatchNorm2d(out_channels, eps=1e-5)
         self.use_batchnorm = use_batchnorm
         self.dtype = dtype
+        self.bn_axis_name = bn_axis_name
 
     def _conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
         conv = getattr(self, f"conv{i}")
         return F.conv2d(x, cast_to(conv.weight, self.dtype), padding=1)
 
     def _norm(self, i: int, x: torch.Tensor, train: bool) -> torch.Tensor:
-        return batch_norm(getattr(self, f"bn{i}"), x, train) if self.use_batchnorm else x
+        return batch_norm(getattr(self, f"bn{i}"), x, train, self.bn_axis_name) if self.use_batchnorm else x
 
     def forward(self, x: torch.Tensor, pool_size, train: bool = False) -> torch.Tensor:
         """x: (bs, C, H, W)."""
@@ -135,15 +220,17 @@ class Cnn14(nn.Module):
     def __init__(
         self, num_classes: int, n_inputs: int = 1, base_width: int = 64, use_batchnorm: bool = True,
         dtype: Optional[torch.dtype] = None, min_width: int = 0, remat_blocks: int = 0,
+        bn_axis_name=None,
     ):
         super().__init__()
         chans = [n_inputs] + [max(base_width << i, min_width) for i in range(6)]
         for i in range(6):
             setattr(self, f"conv_block{i + 1}",
-                    ConvBlock(chans[i], chans[i + 1], use_batchnorm, dtype))
+                    ConvBlock(chans[i], chans[i + 1], use_batchnorm, dtype, bn_axis_name))
         self.fc = nn.Linear(chans[-1], num_classes)
         self.dtype = dtype
         self.remat_blocks = remat_blocks
+        self.bn_axis_name = bn_axis_name
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x: (bs, chs, bins, frames) spectrogram -> (bs, num_classes)."""

@@ -13,7 +13,11 @@ Port of ``diffmst_tpu/models/encoders.py``:
   (Cnn14's compute dtype) and ``remat_blocks`` (Cnn14's first blocks
   recomputed in the backward pass). ``remat`` recomputes the whole encoder
   there instead (``MixStyleTransferModel.build(remat_encoders=True)``, JAX's
-  ``nn.remat(SpectrogramEncoder)``).
+  ``nn.remat(SpectrogramEncoder)``). ``bn_axis_name`` names the mesh axes
+  over which Cnn14's train-mode BatchNorm, and the input BatchNorm, take
+  their statistics (``cnn14.batch_norm``; JAX's ``encoders.py:34, :73``
+  threads it to Cnn14 alone, whose input BatchNorm then reduces over a
+  shard's tracks only: the port's matches the single-device step).
 * ``WaveformTransformerEncoder`` and ``PositionalEncoding``: the
   alternative block-transformer encoder (``encoders.py:82-127``). The
   encoder prepends a learned CLS block to the waveform's non-overlapping
@@ -53,6 +57,7 @@ class SpectrogramEncoder(nn.Module):
         dtype: Optional[torch.dtype] = None,
         remat_blocks: int = 0,
         remat: bool = False,
+        bn_axis_name=None,
     ):
         super().__init__()
         self.n_fft = n_fft
@@ -61,6 +66,7 @@ class SpectrogramEncoder(nn.Module):
         self.spec_eps = spec_eps
         self.crop_nyquist = crop_nyquist
         self.remat = remat
+        self.bn_axis_name = bn_axis_name
         if input_batchnorm:
             # Flax momentum 0.9 is torch's 0.1; the update itself is
             # cnn14.batch_norm's, the variance biased as in Flax
@@ -68,7 +74,7 @@ class SpectrogramEncoder(nn.Module):
         self.input_batchnorm = input_batchnorm
         self.model = Cnn14(
             embed_dim, n_inputs=n_inputs, base_width=cnn_base_width, use_batchnorm=encoder_batchnorm,
-            dtype=dtype, min_width=cnn_min_width, remat_blocks=remat_blocks,
+            dtype=dtype, min_width=cnn_min_width, remat_blocks=remat_blocks, bn_axis_name=bn_axis_name,
         )
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -86,7 +92,7 @@ class SpectrogramEncoder(nn.Module):
         mag = torch.pow(X.abs() + self.spec_eps, self.spec_power)
         mag = mag.reshape(bs, chs, *mag.shape[-2:])
         if self.input_batchnorm:
-            mag = batch_norm(self.bn, mag, train)
+            mag = batch_norm(self.bn, mag, train, self.bn_axis_name)
         return self.model(mag, train)
 
 

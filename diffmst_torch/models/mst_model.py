@@ -13,9 +13,10 @@ mst_model.py:92-166``): ``compute_dtype`` (the encoders' Cnn14 and the
 controller's transformer compute in it; the parameters, the BatchNorm
 statistics, the heads and the outputs stay float32), ``remat_encoders``
 (each encoder recomputed whole in the backward pass), ``remat_blocks``
-(only the first N Cnn14 blocks), ``cnn_min_width`` and ``crop_nyquist_bin``.
-``bn_axis_name`` (BatchNorm statistics across a device mesh) waits for the
-mesh (ROADMAP Queue 1, item 12e).
+(only the first N Cnn14 blocks), ``cnn_min_width`` and ``crop_nyquist_bin``,
+and ``bn_axis_name``: the mesh axes (``("dp", "mp")`` for the track-parallel
+System, ``diffmst_torch/parallel``) over which both encoders' train-mode
+BatchNorm takes its statistics (``models/cnn14.py::batch_norm``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ from diffmst_torch.models.cnn14 import Cnn14
 from diffmst_torch.models.controller import TransformerController
 from diffmst_torch.models.encoders import SpectrogramEncoder, WaveformTransformerEncoder
 from diffmst_torch.models.transformer import _SelfAttention
-from diffmst_torch.utils.config import NotPortedError
 from diffmst_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = ["MixStyleTransferModel"]
@@ -153,7 +153,7 @@ class MixStyleTransferModel(nn.Module):
         compute_dtype: Optional[Union[str, torch.dtype]] = None,
         remat_encoders: bool = False,
         remat_blocks: int = 0,
-        bn_axis_name: Optional[str] = None,
+        bn_axis_name: Optional[Union[str, Tuple[str, ...]]] = None,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
     ) -> "MixStyleTransferModel":
@@ -164,11 +164,6 @@ class MixStyleTransferModel(nn.Module):
         and initializes it (``main_torch.py``). ``compute_dtype`` is a dtype
         or its name (``"bfloat16"``); the compute options are described in
         the module docstring."""
-        if bn_axis_name is not None:
-            raise NotPortedError(
-                "bn_axis_name (BatchNorm statistics across a device mesh) is not ported to "
-                "diffmst_torch yet: ROADMAP Queue 1, item 12e"
-            )
         if remat_encoders and remat_blocks:
             raise ValueError("use either remat_encoders or remat_blocks")
         dtype = getattr(torch, compute_dtype) if isinstance(compute_dtype, str) else compute_dtype
@@ -179,7 +174,7 @@ class MixStyleTransferModel(nn.Module):
                 embed_dim=embed_dim, n_fft=n_fft, hop_length=hop_length,
                 cnn_base_width=cnn_base_width, cnn_min_width=cnn_min_width,
                 crop_nyquist=crop_nyquist_bin, dtype=dtype, remat_blocks=remat_blocks,
-                remat=remat_encoders,
+                remat=remat_encoders, bn_axis_name=bn_axis_name,
             )
 
         with torch.device("meta"):  # allocate once, on the target device

@@ -36,6 +36,13 @@ graph, which the next replay overwrites. The System's state must be changed
 in place only (``load_state_dict`` of ``torch.optim.Adam`` makes new
 tensors): a replay whose captured tensors were replaced raises.
 
+Over a mesh (JAX ``trainer.py:297-309``) the staged draws are the global
+batch's, as a sequential step's are (``System.draw_ref_params``,
+``System.reverb_noise``), and each step takes its rows. On the card the
+mesh's collectives (BatchNorm's statistics, the gradients, the metrics, the
+track gather) are captured into the graph: NCCL's can be, gloo's cannot,
+so a mesh on gloo raises on the card. On the CPU the steps run eagerly.
+
 Refused: a host-side ``mix_fn`` (KE), as JAX refuses it (``ValueError``);
 ``skip_nonfinite_updates`` > 0 (its check reads the gradients on the host),
 an ``accumulate_grad_batches`` that does not divide K, and a group that
@@ -54,7 +61,6 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from diffmst_torch.kernels import launch_counts, set_launch_counts
-from diffmst_torch.mixing.naive import draw_mix_params
 from diffmst_torch.ops.reverb import reverb_noise_from_seed, reverb_noise_seed, reverb_noise_shape
 from diffmst_torch.train.system import Batch, EffectFlags, OptaxAdam, System, UpdateScalars
 from diffmst_torch.utils.device import resolve_device
@@ -96,6 +102,12 @@ class FusedSteps:
         self.capture_lock = capture_lock if capture_lock is not None else contextlib.nullcontext()
         self.device = resolve_device(system.device)
         self.on_card = self.device.type == "cuda"
+        mesh = system.data_mesh
+        if self.on_card and mesh is not None and mesh.backend != "nccl":
+            raise ValueError(
+                f"fused_steps > 1 on the card captures the mesh's collectives into a CUDA graph, which "
+                f"NCCL's can join and {mesh.backend}'s cannot: run the ranks on NCCL, or set fused_steps=1"
+            )
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.capture_s = self.instantiate_s = 0.0
         self.pool_bytes = 0
@@ -115,10 +127,11 @@ class FusedSteps:
                                     device=dev)
         self._ref_mix = torch.empty((k, *batch.ref_mix.shape), dtype=batch.ref_mix.dtype, device=dev)
         bs, n, _ = batch.tracks.shape
+        total, _ = system.rows(bs)  # the draws are the global batch's
         draws = system.config.generate_mix
-        self._param_shapes = ((bs, n, console.num_track_control_params),
-                              (bs, console.num_fx_bus_control_params),
-                              (bs, console.num_master_bus_control_params)) if draws else ()
+        self._param_shapes = ((total, n, console.num_track_control_params),
+                              (total, console.num_fx_bus_control_params),
+                              (total, console.num_master_bus_control_params)) if draws else ()
         sizes = [torch.Size(s).numel() for s in self._param_shapes]
         width = sum(sizes) + 3  # the draws, then lr, bc1, bc2
         self._vals = torch.empty((k, width), dtype=torch.float32, device=dev)
@@ -132,7 +145,7 @@ class FusedSteps:
 
         self._noise = None
         if self.flags.use_fx_bus:
-            shape = reverb_noise_shape(bs, 2, console.reverb_num_samples, console.reverb_num_taps)
+            shape = reverb_noise_shape(total, 2, console.reverb_num_samples, console.reverb_num_taps)
             self._noise_shape = shape
             self._noise = torch.empty((k, 2, *shape), dtype=batch.tracks.dtype, device=dev)
 
@@ -170,7 +183,7 @@ class FusedSteps:
         seeds = []
         for j in range(k):
             if self._param_shapes:
-                draws = draw_mix_params(self._tracks[j], system.mix_console, gen, device="cpu")
+                draws = system.draw_ref_params(self._tracks[j], device="cpu")
                 torch.cat([d.reshape(-1) for d in draws], out=host[j, :-3])
             if self._noise is not None:
                 # the reference render's noise, then the predicted render's

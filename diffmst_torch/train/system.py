@@ -46,7 +46,23 @@ host's counters, or from ``UpdateScalars`` (device tensors under a CUDA
 graph, which each replay refills: ``train/fused.py``, the Trainer's
 ``fused_steps``).
 
-Not ported: the mesh (ROADMAP Queue 1, item 12e).
+Over a device mesh (``diffmst_torch/parallel``; JAX ``system.py:141-195,
+:268-354``) each rank steps its share of the global batch: its dp row's
+rows (``parallel.shard_batch``), and with ``System(mesh=)`` of mp > 1 its
+tracks in the track encoder and the console's chain. The mesh is the
+System's own (``mesh``) or the Trainer's (``distribute``, which leaves the
+track axis alone, as JAX's CLI does). Every rank keeps the same
+``generator`` and draws the global batch's reference-mix parameters and
+reverb seeds, then takes its rows; parameters a caller passes
+(``ref_params``, ``reverb_noise``) are the global batch's too, and so are
+the batch's host-side ``instrument_id`` and ``stereo_info``. Before the
+clip, the gradients are summed over the ranks: the mean over dp, the
+track encoder's partial gradients summed over mp, the rest (whole on every
+mp rank) counted once. So the norm, the clip, the non-finite check and Adam
+see the global gradients on every rank and take the same step. The metrics
+are the global batch's: the mean over dp of the loss terms, the sum of the
+non-finite counts. ``check_replicas`` holds the parameters and BatchNorm
+statistics to rank 0's.
 """
 
 from __future__ import annotations
@@ -64,6 +80,10 @@ from torch.profiler import record_function
 
 from diffmst_torch.mixing import naive_random_mix
 from diffmst_torch.mixing.knowledge import REPO_ROOT, instrument_metadata, sample_ke_params
+from diffmst_torch.mixing.naive import draw_mix_params
+from diffmst_torch.ops.reverb import reverb_noise_from_seed, reverb_noise_seed, reverb_noise_shape
+from diffmst_torch.parallel.mesh import (assert_mesh_divisible, batch_rows, bound, check_replicas,
+                                         gather_tracks, track_slice)
 from diffmst_torch.utils.audio import batch_stereo_peak_normalize
 from diffmst_torch.utils.device import DeviceLike, resolve_device
 
@@ -163,6 +183,10 @@ class System:
     ``model`` is a ``MixStyleTransferModel`` on ``device`` (None: the CUDA
     device) and ``mix_console`` a console on the same device; ``generator``
     draws the reference mixes (default: a CPU generator seeded 0).
+    ``mesh``: a (dp, mp) mesh (``parallel.make_mesh``) whose ranks step the
+    global batch together; with mp > 1 the track axis is split over mp,
+    which needs the model built with ``bn_axis_name=("dp", "mp")`` and the
+    console with the same mesh (see the module docstring).
     """
 
     def __init__(
@@ -174,6 +198,7 @@ class System:
         mix_fn: Callable = naive_random_mix,
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
+        mesh=None,
         **kwargs,
     ):
         """Extra keyword arguments take the reference's flat names
@@ -195,6 +220,8 @@ class System:
         self.mix_fn = mix_fn
         self.generator = generator if generator is not None else torch.Generator().manual_seed(0)
         self.device = device
+        self.mesh = mesh  # JAX's System(mesh=): the track axis splits over its mp
+        self.data_mesh = mesh  # the mesh whose ranks step together
         self._make_optimizer()
         self.step = 0  # train steps taken, as JAX's TrainState.step
         self.instrument_number_lookup = None
@@ -236,6 +263,49 @@ class System:
         in float64. ``OptaxAdam`` needs nothing."""
         if not isinstance(self.optimizer, OptaxAdam):
             _set_capturable(self.optimizer, True)
+
+    def distribute(self, mesh) -> None:
+        """Step over ``mesh``'s ranks (the Trainer's mesh): each rank takes
+        its dp row's share of the global batch, and the track axis stays
+        whole unless the System was built with that mesh (JAX passes the
+        CLI's mesh to its Trainer alone, ``main.py:59-87``)."""
+        if self.mesh is not None and mesh is not self.mesh:
+            raise ValueError("the System was built with another mesh than the one it is to step over")
+        self.data_mesh = mesh
+
+    @property
+    def mp_sharded(self) -> bool:
+        """The track axis splits over the mesh's mp ranks."""
+        return self.mesh is not None and self.mesh.shape["mp"] > 1
+
+    def check_replicas(self) -> None:
+        """Check that every rank of the mesh holds rank 0's parameters and
+        BatchNorm statistics (``parallel.check_replicas``): they start
+        equal, drawn from the seed on the CPU or restored from one file."""
+        if self.data_mesh is not None:
+            check_replicas(list(self.model.parameters()) + list(self.model.buffers()), self.data_mesh)
+
+    def rows(self, local_bs: int) -> Tuple[int, slice]:
+        """(the global batch size, this rank's rows of it) for ``local_bs``
+        rows a rank: (local_bs, all rows) without a mesh."""
+        if self.data_mesh is None:
+            return local_bs, slice(None)
+        return batch_rows(self.data_mesh, local_bs)
+
+    def draw_ref_params(self, tracks: torch.Tensor, device=None):
+        """The reference mix's uniform parameters of the global batch, from
+        ``self.generator``, as a sequential step draws them (``mixing/
+        naive.py::draw_mix_params``); ``tracks`` are this rank's."""
+        total, _ = self.rows(tracks.shape[0])
+        return draw_mix_params(tracks, self.mix_console, self.generator, device=device, batch_size=total)
+
+    def reverb_noise(self, seed: int, local_bs: int, device, dtype) -> torch.Tensor:
+        """This rank's rows of the global batch's reverb noise for the draw
+        ``seed`` (``ops.reverb.reverb_noise_from_seed``)."""
+        total, rows = self.rows(local_bs)
+        console = self.mix_console
+        shape = reverb_noise_shape(total, 2, console.reverb_num_samples, console.reverb_num_taps)
+        return reverb_noise_from_seed(seed, shape, device, dtype)[rows]
 
     @property
     def optimizer_layout(self) -> str:
@@ -338,7 +408,13 @@ class System:
         render's) replaces the two reverb draws when the fx bus is on. Its
         stages run under ``torch.profiler`` ranges named ``system.ref_mix``
         (with ``system.ke_sample`` for a host-side mix_fn), ``system.model``,
-        ``system.render`` and ``system.loss``."""
+        ``system.render`` and ``system.loss``. Under a mesh ``batch`` is
+        this rank's share (``parallel.shard_batch``), and ``ref_params`` and
+        ``reverb_noise`` are the global batch's."""
+        with bound(self.data_mesh):
+            return self._forward(batch, flags, train, ref_params, reverb_noise)
+
+    def _forward(self, batch, flags, train, ref_params, reverb_noise):
         cfg = self.config
         dev = resolve_device(self.device)
         # the instrument ids and stereo flags stay where they are: only the
@@ -347,6 +423,8 @@ class System:
                                ref_mix=batch.ref_mix.to(dev))
         tracks = batch.tracks
         middle = tracks.shape[-1] // 2
+        if self.data_mesh is not None:
+            ref_params, reverb_noise = self._rank_draws(batch, flags, ref_params, reverb_noise, dev)
         ref_noise, render_noise = reverb_noise if reverb_noise is not None else (None, None)
 
         ref_param_arrays = None
@@ -378,9 +456,14 @@ class System:
             tracks_b = tracks
 
         with record_function("system.model"):
-            pred_track, pred_fx, pred_master = self.model(
-                tracks_b, ref_mix_a, batch.track_padding, train=train
-            )
+            if self.mp_sharded:
+                pred_track, pred_fx, pred_master = self._apply_model_mp(
+                    tracks_b, ref_mix_a, batch.track_padding, train
+                )
+            else:
+                pred_track, pred_fx, pred_master = self.model(
+                    tracks_b, ref_mix_a, batch.track_padding, train=train
+                )
         with record_function("system.render"):
             render = self.mix_console(
                 tracks_b,
@@ -402,6 +485,8 @@ class System:
                                          ref_param_arrays, flags)
         metrics["ref_mix_nonfinite"] = torch.sum(~torch.isfinite(ref_mix_b))
         metrics["pred_mix_nonfinite"] = torch.sum(~torch.isfinite(pred_mix_b))
+        if self.data_mesh is not None:
+            metrics = self._reduce_metrics(metrics)
         outputs = {
             "pred_mix_b": pred_mix_b,
             "ref_mix_a": ref_mix_a,
@@ -409,6 +494,89 @@ class System:
             "pred_params": (pred_track, pred_fx, pred_master),
         }
         return loss, metrics, outputs
+
+    def _rank_draws(self, batch, flags, ref_params, reverb_noise, dev):
+        """This rank's rows of the global batch's reference-mix parameters
+        and reverb noise: drawn from ``self.generator`` in a sequential
+        step's order (the parameters, or KE's seed; the reference render's
+        reverb seed; the predicted render's), or taken from the global ones
+        a caller passes."""
+        cfg = self.config
+        bs = batch.tracks.shape[0]
+        total, rows = self.rows(bs)
+        if cfg.generate_mix:
+            if ref_params is None and getattr(self.mix_fn, "host_side", False):
+                if batch.instrument_id.shape[0] != total:
+                    raise ValueError(
+                        f"a host-side mix_fn draws the global batch's {total} mixes from its instrument ids; "
+                        f"the batch holds {batch.instrument_id.shape[0]} rows of them"
+                    )
+                with record_function("system.ke_sample"):
+                    ref_params = self._host_sample_ke(batch)
+            elif ref_params is None:
+                ref_params = self.draw_ref_params(batch.tracks)
+            ref_params = tuple(p[rows] for p in ref_params)
+        if flags.use_fx_bus:
+            if reverb_noise is None:
+                seeds = (reverb_noise_seed(self.generator) if cfg.generate_mix else None,
+                         reverb_noise_seed(self.generator))
+                reverb_noise = tuple(None if s is None else self.reverb_noise(s, bs, dev, batch.tracks.dtype)
+                                     for s in seeds)
+            else:
+                reverb_noise = tuple(None if n is None else n[rows] for n in reverb_noise)
+        return ref_params, reverb_noise
+
+    def _apply_model_mp(self, tracks_b, ref_mix_a, padding, train):
+        """The model with the track axis over mp (JAX ``_apply_model_mp``,
+        ``system.py:268-354``): the track encoder on this rank's tracks,
+        the embeddings gathered along tracks; the mix encoder and the
+        controller on the whole dp row, replicated over mp."""
+        mesh = self.mesh
+        assert_mesh_divisible(mesh, tracks_b.shape[0] * mesh.shape["dp"], tracks_b.shape[1],
+                              "mp-sharded encoders")
+        model = self.model
+        if train and getattr(model.track_encoder, "bn_axis_name", None) is None:
+            raise ValueError(
+                "mp-sharded training needs the model built with "
+                f"bn_axis_name={tuple(mesh.axis_names)!r} so BatchNorm "
+                "statistics reduce globally inside shard_map"
+            )
+        te = gather_tracks(model.encode_tracks(track_slice(tracks_b, mesh), train), mesh)
+        return model.controller(te, model.encode_mix(ref_mix_a, train), padding)
+
+    def _reduce_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The global batch's metrics from every rank's (one all-reduce):
+        the loss terms' mean over dp, the non-finite counts' sum over dp
+        (each dp row's value is whole on its mp ranks)."""
+        mesh = self.data_mesh
+        vals = torch.stack([v.detach().to(torch.float64) for v in metrics.values()])
+        torch.distributed.all_reduce(vals, group=mesh.group(mesh.axis_names))
+        out = {}
+        for v, (k, m) in zip(vals, metrics.items()):
+            if k.endswith("_nonfinite"):  # summed over dp, each dp row's on its mp ranks
+                out[k] = (v / mesh.shape["mp"]).round().to(m.dtype)
+            else:
+                out[k] = (v / mesh.size).to(m.dtype)
+        return out
+
+    def _reduce_gradients(self, grads) -> None:
+        """Sum ``grads`` over the mesh's ranks in place (one all-reduce a
+        dtype) and divide: the track encoder's by dp where the track axis
+        splits over mp (its partial gradients add up over mp), every other
+        by dp * mp (whole on each mp rank: their mean over dp)."""
+        mesh = self.data_mesh
+        by_dtype: Dict[torch.dtype, list] = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for gs in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in gs])
+            torch.distributed.all_reduce(flat, group=mesh.group(mesh.axis_names))
+            torch._foreach_copy_(gs, [piece.view_as(g) for g, piece in zip(gs, flat.split([g.numel() for g in gs]))])
+        track = {id(p) for p in self.model.track_encoder.parameters()} if self.mp_sharded else set()
+        for divisor, members in ((mesh.shape["dp"], [g for p, g in zip(self.params, grads) if id(p) in track]),
+                                 (mesh.size, [g for p, g in zip(self.params, grads) if id(p) not in track])):
+            if members:
+                torch._foreach_div_(members, float(divisor))
 
     def _losses(self, pred_mix_b, ref_mix_b, pred_params, ref_param_arrays, flags):
         """The mix loss (a scalar or named terms) and the optional
@@ -460,12 +628,16 @@ class System:
     def backward(self, loss: torch.Tensor) -> torch.Tensor:
         """Backpropagate ``loss`` into ``.grad`` (zeros where it does not
         reach, as ``jax.grad`` gives) under the range ``system.backward``;
-        returns the gradients' global norm."""
-        with record_function("system.backward"):
+        under a mesh, reduce the gradients over its ranks. Returns the
+        gradients' global norm."""
+        with bound(self.data_mesh), record_function("system.backward"):
             loss.backward()
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.data_mesh is not None:
+            with record_function("system.grad_all_reduce"):
+                self._reduce_gradients([p.grad for p in self.params])
         return _global_norm([p.grad for p in self.params])
 
     @torch.no_grad()

@@ -50,7 +50,16 @@ Random streams (JAX splits one key per step; the port draws from
   * ``validate`` and ``test``: as validation, from a training stream seeded
     ``seed``.
 
-Not ported yet (ROADMAP Queue 1, item 12e): the mesh (``devices`` > 1).
+A mesh (``Trainer(mesh=)``, ``parallel.make_mesh``; JAX ``trainer.py:95,
+:155-161``): every rank runs this loop over the same global batches (the
+datamodule shards songs by host, not by rank), and the prefetch thread takes
+the rank's rows on the host before the upload (``parallel.shard_batch``).
+The System steps over the mesh (``System.distribute``): its metrics are the
+global batch's on every rank. Rank 0 alone prints, logs, calls the
+callbacks, traces and writes checkpoints; every rank restores them. The
+state is replicated, so a mesh fit's checkpoint is a single process's, and
+the other way round. ``fit`` checks the ranks' parameters against rank 0's
+first (``System.check_replicas``).
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ from typing import Dict, Iterator, List, Optional, Union
 import numpy as np
 import torch
 
+from diffmst_torch.parallel.mesh import shard_batch
 from diffmst_torch.train.fused import FusedSteps
 from diffmst_torch.train.system import Batch, System
 from diffmst_torch.utils.checkpoint import load_meta, restore_state, save_state
@@ -78,21 +88,21 @@ __all__ = ["Trainer"]
 _SAMPLE_RATE = 44100.0
 
 
-def _to_batch(raw, device: torch.device) -> Batch:
+def _to_batch(raw, device: torch.device, mesh=None) -> Batch:
     """A collated host batch (tracks, stereo, instr, padding, mix, names) as a
     ``Batch`` on ``device``, but for the instrument ids and stereo flags,
-    which stay on the host: only the host-side KE sampler reads them."""
+    which stay on the host: only the host-side KE sampler reads them. Under
+    a ``mesh``, this rank's share of it (``parallel.shard_batch``, taken on
+    the host)."""
     tracks, stereo, instr, padding, mix, _names = raw
-    return Batch(
-        tracks=torch.as_tensor(tracks).to(device),
-        instrument_id=torch.as_tensor(instr),
-        stereo_info=torch.as_tensor(stereo),
-        track_padding=torch.as_tensor(padding).to(device),
-        ref_mix=torch.as_tensor(mix).to(device),
-    )
+    batch = Batch(*(torch.as_tensor(a) for a in (tracks, instr, stereo, padding, mix)))
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    return batch._replace(tracks=batch.tracks.to(device), track_padding=batch.track_padding.to(device),
+                          ref_mix=batch.ref_mix.to(device))
 
 
-def _prefetch(loader, device: torch.device, depth: int = 2, lock=None) -> Iterator[Batch]:
+def _prefetch(loader, device: torch.device, depth: int = 2, lock=None, mesh=None) -> Iterator[Batch]:
     """Batches of ``loader`` on ``device``, made by a background thread.
 
     The thread walks the host dataloader (decode, loudness gating, buffer
@@ -101,6 +111,7 @@ def _prefetch(loader, device: torch.device, depth: int = 2, lock=None) -> Iterat
     raised in the consumer. Copies go to the device's default stream, in
     order with the steps, each under ``lock`` where one is given (a CUDA
     graph's capture holds it: no other thread may call the runtime then).
+    Under a ``mesh`` each batch is this rank's share (``_to_batch``).
     """
     q: queue.Queue = queue.Queue(maxsize=depth)
     end = object()
@@ -120,7 +131,7 @@ def _prefetch(loader, device: torch.device, depth: int = 2, lock=None) -> Iterat
                 if stop.is_set():
                     return
                 with lock if lock is not None else contextlib.nullcontext():
-                    batch = _to_batch(raw, device)
+                    batch = _to_batch(raw, device, mesh)
                 put(batch)
             put(end)
         except BaseException as exc:  # noqa: BLE001 -- re-raised by the consumer
@@ -184,12 +195,14 @@ class Trainer:
         fused_steps: int = 1,
     ) -> None:
         """The JAX Trainer's arguments. ``num_sanity_val_steps`` defaults to
-        0 here, as in JAX; the CLI applies Lightning's 2."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the device mesh is not ported to diffmst_torch yet: ROADMAP Queue 1, item 12e"
-            )
+        0 here, as in JAX; the CLI applies Lightning's 2. ``mesh``: the
+        (dp, mp) mesh of ranks the System steps over (see the module
+        docstring)."""
         self.system = system
+        self.mesh = mesh
+        if mesh is not None:
+            system.distribute(mesh)
+        self.is_main = mesh is None or mesh.rank == 0
         self.datamodule = datamodule
         self.max_epochs = max_epochs or system.config.max_epochs
         self.ckpt_dir = ckpt_dir
@@ -216,6 +229,7 @@ class Trainer:
         system, dm = self.system, self.datamodule
         system.generator = torch.Generator().manual_seed(self.seed)
         start_epoch = self._restore(resume) if resume else 0
+        system.check_replicas()
 
         if self.num_sanity_val_steps:
             self._run_validation(
@@ -242,16 +256,16 @@ class Trainer:
             steps_since_sync = 0
 
             tracing = None
-            batches = _prefetch(dm.train_dataloader(), self.device, lock=self._device_lock)
+            batches = _prefetch(dm.train_dataloader(), self.device, lock=self._device_lock, mesh=self.mesh)
             for i, group in enumerate(self._group_batches(batches)):
-                if self.profile_steps and i == self.profile_steps.start:
+                if self.profile_steps and self.is_main and i == self.profile_steps.start:
                     tracing = trace(self.profile_dir)
                     tracing.__enter__()
                 if k > 1:
                     captured = fused.graph is not None
                     metrics = fused(group)[-1]
                     batch = group[-1]
-                    if not captured and fused.graph is not None:
+                    if not captured and fused.graph is not None and self.is_main:
                         print(f"fused: {k} steps a CUDA graph replay from epoch {epoch}'s group {i + 2} on,"
                               f" captured in {fused.capture_s:.3f} s, instantiated in {fused.instantiate_s:.3f} s,"
                               f" its pool {fused.pool_bytes / 2**30:.2f} GiB", flush=True)
@@ -269,6 +283,7 @@ class Trainer:
                     sps = steps_since_sync / max(now - t_sync, 1e-9)
                     t_sync, steps_since_sync = now, 0
                     bs, _, length = batch.tracks.shape
+                    bs, _ = system.rows(bs)  # the global batch's
                     host.update(epoch=epoch, steps_per_sec=sps,
                                 realtime_factor=sps * bs * length / _SAMPLE_RATE)
                     self.history.append(host)
@@ -331,7 +346,7 @@ class Trainer:
         synchronized, its Chrome trace written into ``profile_dir``."""
         tracing.__exit__(None, None, None)
         r = self.profile_steps
-        print(f"profile: steps {r.start}-{r.stop} of epoch {epoch} traced into {self.profile_dir}", flush=True)
+        self.log_line(f"profile: steps {r.start}-{r.stop} of epoch {epoch} traced into {self.profile_dir}")
 
     # ------------------------------------------------------- checkpoints
     def _meta(self, next_epoch: int) -> Dict:
@@ -341,7 +356,15 @@ class Trainer:
             "steps_per_epoch": int(self.system.config.steps_per_epoch),
         }
 
+    def log_line(self, text: str) -> None:
+        """Print ``text`` on rank 0."""
+        if self.is_main:
+            print(text, flush=True)
+
     def _save(self, name: str, next_epoch: int) -> None:
+        """Rank 0 writes the checkpoint (the state is replicated)."""
+        if not self.is_main:
+            return
         path = os.path.join(self.ckpt_dir, name)
         t0 = time.perf_counter()
         size = save_state(path, self.system, meta=self._meta(next_epoch))
@@ -355,7 +378,7 @@ class Trainer:
         restore_state(resume, self.system)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        print(f"checkpoint: restored {resume} in {time.perf_counter() - t0:.3f} s", flush=True)
+        self.log_line(f"checkpoint: restored {resume} in {time.perf_counter() - t0:.3f} s")
         meta = load_meta(resume)
         if "next_epoch" in meta:
             return int(meta["next_epoch"])
@@ -376,7 +399,7 @@ class Trainer:
             dataloader = self.datamodule.val_dataloader()
         if limit_batches is not None:
             dataloader = itertools.islice(dataloader, limit_batches)
-        for i, batch in enumerate(_prefetch(dataloader, self.device)):
+        for i, batch in enumerate(_prefetch(dataloader, self.device, mesh=self.mesh)):
             gen = (torch.Generator().manual_seed(_fold_in(self.seed + 1, i))
                    if self.deterministic_val else generator)
             with _drawing_from(self.system, gen):
@@ -385,7 +408,7 @@ class Trainer:
                 agg[name].append(float(v))
         val_metrics = {name: float(np.mean(v)) for name, v in agg.items()}
         self._log(tag, {**val_metrics, "epoch": epoch})
-        if tag != "sanity":  # Lightning suppresses user hooks during sanity
+        if tag != "sanity" and self.is_main:  # Lightning suppresses user hooks during sanity
             for cb in self.callbacks:
                 if hasattr(cb, "on_validation_end") and outputs is not None:
                     cb.on_validation_end(epoch, self.system, outputs, val_metrics)
@@ -395,6 +418,7 @@ class Trainer:
         """Restore ``resume`` (else keep the System's weights) and run one
         pass over ``loader_fn()``, at the flags of the checkpoint's epoch."""
         epoch = self._restore(resume) if resume else 0
+        self.system.check_replicas()
         generator = _split(torch.Generator().manual_seed(self.seed))
         return self._run_validation(
             self.system.effect_flags(epoch), generator, epoch, dataloader=loader_fn(), tag=tag
@@ -409,6 +433,9 @@ class Trainer:
         return self._eval_pass(resume, self.datamodule.test_dataloader, "test")
 
     def _log(self, tag: str, metrics: Dict[str, float]) -> None:
+        """Print and hand the metrics to the callbacks, on rank 0 only."""
+        if not self.is_main:
+            return
         parts = " ".join(
             f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in metrics.items()

@@ -21,8 +21,20 @@ are relative to the working directory.
 (``diffmst_torch/utils/export.py``; ``--num_tracks``, ``--analysis_len``,
 ``--render_bs``, the weights from ``--ckpt_path``) into ``--output``, by
 default ``serving_export``. ``trainer.fused_steps`` K runs K steps as one
-replay of a CUDA graph on the card (``diffmst_torch/train/fused.py``). More
-than one device is not ported yet (ROADMAP Queue 1, item 12e).
+replay of a CUDA graph on the card (``diffmst_torch/train/fused.py``).
+
+More than one device, as ``main.py:59-77`` reads it: ``trainer.devices`` N
+> 1 (or ``"auto"``/-1: every card present; 1 on the CPU) is a dp mesh of N
+ranks, and ``trainer.mesh: {dp, mp}`` a (dp, mp) mesh over every card
+present (on the CPU: over dp * mp ranks). ``fit``, ``validate`` and ``test``
+then start one process a rank from this command (``diffmst_torch/parallel/
+launch.py``: NCCL on the cards, gloo for ``--device cpu``), each on its
+card; under ``torchrun`` the command is already one rank, and the mesh
+spans torchrun's ranks. More devices than there are cards raise
+``SystemExit``. The mesh goes to the Trainer alone, as JAX's CLI passes it:
+the System and the console are built without it, so mp > 1 replicates each
+dp row's step over mp (ROADMAP Queue 3). With ranks, ``main`` returns a
+summary of each rank's run.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import argparse
 import os
 import sys
 import time
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +51,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
-def build_from_config(cfg: dict, device=None):
+def build_from_config(cfg: dict, device=None, mesh=None):
     """(system, datamodule, trainer) from a merged config, on ``device``
-    (None: the CUDA device).
+    (None: the CUDA device); ``mesh`` (a ``parallel.make_mesh`` of this
+    rank) goes to the Trainer.
 
     The model is allocated once, on the device, and initialized from a CPU
     generator seeded ``seed_everything``, so the same seed gives the same
@@ -55,7 +69,6 @@ def build_from_config(cfg: dict, device=None):
     dev = resolve_device(device)
     seed = cfg.get("seed_everything", 42)
     trainer_cfg = dict(cfg.get("trainer", {}))
-    _check_ported(trainer_cfg, dev)
 
     clock.lap("imports")
     model, mix_console, init_args = _build_model(cfg, dev, seed, clock)
@@ -95,6 +108,7 @@ def build_from_config(cfg: dict, device=None):
         log_every_n_steps=trainer_cfg.get("log_every_n_steps", 50),
         check_val_every_n_epoch=trainer_cfg.get("check_val_every_n_epoch", 1),
         callbacks=callbacks,
+        mesh=mesh,
         seed=seed,
         ckpt_every_n_steps=trainer_cfg.get("ckpt_every_n_steps", 500),
         fused_steps=trainer_cfg.get("fused_steps", 1),
@@ -104,8 +118,9 @@ def build_from_config(cfg: dict, device=None):
         num_sanity_val_steps=trainer_cfg.get("num_sanity_val_steps", 2),
     )
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"built: {n_params / 1e6:.1f} M parameters in {clock.total():.3f} s ({clock.laps()})",
-          flush=True)
+    if trainer.is_main:
+        print(f"built: {n_params / 1e6:.1f} M parameters in {clock.total():.3f} s ({clock.laps()})",
+              flush=True)
     return system, datamodule, trainer
 
 
@@ -154,17 +169,33 @@ class _Clock:
         return ", ".join(f"{name} {sec:.3f} s" for name, sec in self.parts)
 
 
-def _check_ported(trainer_cfg: dict, dev: torch.device) -> None:
-    """Refuse the trainer settings the port lacks: more than one device
-    (``trainer.mesh``, ``devices`` > 1)."""
+def mesh_request(trainer_cfg: dict, dev: torch.device) -> Optional[Tuple[int, int]]:
+    """The (dp, mp) mesh that ``trainer.mesh`` or ``trainer.devices`` asks
+    for (``main.py:59-77``), or None for one device: see the module
+    docstring. Under ``torchrun`` the device count is its world size."""
+    mesh_cfg = trainer_cfg.get("mesh")
     devices = trainer_cfg.get("devices", 1)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # torchrun's ranks
+        present = int(os.environ["WORLD_SIZE"])
+    else:
+        present = torch.cuda.device_count() if dev.type == "cuda" else None
+    if mesh_cfg:
+        mp = int(mesh_cfg.get("mp", 1))
+        dp = mesh_cfg.get("dp")
+        n = present if present is not None else (dp or 1) * mp
+        dp = n // mp if dp is None else int(dp)
+        if dp * mp != n:
+            raise ValueError(f"dp*mp = {dp}*{mp} != device count {n}")
+        return dp, mp
     if devices in ("auto", -1):
-        devices = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if trainer_cfg.get("mesh") or (isinstance(devices, int) and devices > 1):
-        raise NotImplementedError(
-            "training on more than one device is not ported to diffmst_torch yet: "
-            "ROADMAP Queue 1, item 12e"
-        )
+        n = present if present is not None else 1
+    elif isinstance(devices, int) and devices > 1:
+        n = devices
+    else:
+        return None
+    if present is not None and n > present:
+        raise SystemExit(f"trainer.devices={n} but only {present} present")
+    return n, 1
 
 
 def main(argv=None):
@@ -212,7 +243,40 @@ def main(argv=None):
         print(f"device: {dev}", flush=True)
     if args.command == "export":
         return _export(cfg, dev, args)
-    system, datamodule, trainer = build_from_config(cfg, dev)
+    shape = None if args.command == "predict" else mesh_request(cfg.get("trainer", {}), dev)
+    if shape is not None:
+        from diffmst_torch.parallel import init_rank, launch
+
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # started by torchrun
+            init_rank(device=args.device)
+            return [_rank_command(args, cfg, shape)]
+        return launch(_rank_command, shape[0] * shape[1], args=(args, cfg, shape), device=dev.type)
+    return _command(args, cfg, dev)[0]
+
+
+def _rank_command(args, cfg: dict, shape: Tuple[int, int]) -> dict:
+    """One rank of a mesh run of ``fit``, ``validate`` or ``test``: a
+    summary of it (its mesh coordinate, step, logged history or metrics)."""
+    from diffmst_torch.parallel import make_mesh, rank_device
+    from diffmst_torch.utils.device import use_full_float32
+
+    use_full_float32()
+    mesh = make_mesh(*shape)
+    result, trainer = _command(args, cfg, rank_device(), mesh)
+    out = {"rank": mesh.rank, "coordinate": mesh.coordinate, "mesh": dict(mesh.shape),
+           "system_mesh": trainer.system.mesh is not None}
+    if args.command == "fit":
+        out.update(step=result.step, history=trainer.history)
+    else:
+        out.update(metrics=result)
+    return out
+
+
+def _command(args, cfg: dict, dev: torch.device, mesh=None):
+    """Build from ``cfg`` on ``dev`` (the Trainer over ``mesh``) and run
+    the command: (the System after ``fit``, the metrics of ``validate`` and
+    ``test`` or the mix of ``predict``; the Trainer)."""
+    system, datamodule, trainer = build_from_config(cfg, dev, mesh)
 
     if args.command == "predict":
         result = _predict(system, args)
@@ -222,14 +286,14 @@ def main(argv=None):
         result = trainer.fit(resume=args.ckpt_path)
     elif args.command == "validate":
         result = trainer.validate(resume=args.ckpt_path)
-        print(f"validate: {result}")
+        trainer.log_line(f"validate: {result}")
     else:
         result = trainer.test(resume=args.ckpt_path)
-        print(f"test: {result}")
-    if dev.type == "cuda":
+        trainer.log_line(f"test: {result}")
+    if dev.type == "cuda" and trainer.is_main:
         print(f"peak card memory: {torch.cuda.max_memory_allocated(dev)} bytes"
               " (max_memory_allocated)", flush=True)
-    return result
+    return result, trainer
 
 
 def _load_weights(model, ckpt_path) -> None:

@@ -16,9 +16,8 @@
     with an overlay of paths and sizes (embed 32, n_fft 2048, hop 128, Cnn14
     width 4, 1 layer, 4 heads, MRSTFT at 512, length 32,768), in full
     float32 (TF32 off), and without ``--device`` (no card here): an error;
-  * what the port lacks (more than one device) refused, naming its ROADMAP
-    item; the trainer flags of the YAML (``fused_steps`` among them)
-    reaching the Trainer;
+  * the trainer flags of the YAML (``fused_steps`` among them) reaching the
+    Trainer (``tests/test_torch_mesh.py`` holds ``devices`` and ``mesh``);
   * the config registry's class paths, ``System``'s flat keywords and the
     CSV sink against the JAX package's.
 
@@ -248,11 +247,6 @@ def test_prefetch_order_errors_and_early_stop():
     it.close()  # the producer stops without draining the loader
 
 
-def test_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Trainer(_system(0), _Data(), mesh=object())
-
-
 # ------------------------------------------------------------------- CLI
 
 SHIPPED = ["configs/config.yaml", "configs/optimizer.yaml", "configs/data/synthetic-8.yaml",
@@ -332,13 +326,6 @@ def test_cli_runs_on_the_card_unless_told(tmp_path, corpus):  # noqa: F811
     for command in ("fit", "export"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main_torch.main([command, *cfg])
-
-
-@pytest.mark.parametrize("trainer", [{"devices": 2}, {"mesh": {"data": 2}}], ids=["devices", "mesh"])
-def test_cli_refuses_what_is_not_ported(trainer):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main_torch.build_from_config({"trainer": trainer}, "cpu")
-    main_torch._check_ported({"devices": 1, "fused_steps": 2}, torch.device("cpu"))
 
 
 def test_cli_trainer_flag_passthrough():

@@ -242,17 +242,27 @@ def test_native_entry_points_match_jax(corpus):
 
 
 def test_dataset_shards_by_torch_distributed(corpus, monkeypatch):
-    """With a process group, each rank takes every world-size-th song."""
+    """With a process group, songs shard by host, as JAX's by process: the
+    ranks of one host take every song; node i of n (torchrun's
+    ``GROUP_RANK`` of ``WORLD_SIZE // LOCAL_WORLD_SIZE``) every n-th song
+    from the i-th."""
     import torch.distributed as dist
 
     assert tdata.dataset._process_shard() == (0, 1)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_rank", lambda: 1)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.delenv("GROUP_RANK", raising=False)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    assert tdata.dataset._process_shard() == (0, 1)  # two ranks of one host
+    dm = tdata.MultitrackDataModule(**_datamodule_args(corpus))
+    assert [s for s, _ in dm.train_dataset.songs] == ["train_song0", "train_song1", "train_song2"]
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")  # one rank a node, two nodes
+    monkeypatch.setenv("GROUP_RANK", "1")
     assert tdata.dataset._process_shard() == (1, 2)
     with pytest.raises(ValueError, match="no songs for subset='val'"):
-        tdata.MultitrackDataModule(**_datamodule_args(corpus))  # one val song, on rank 0
-    monkeypatch.setattr(dist, "get_rank", lambda: 0)
+        tdata.MultitrackDataModule(**_datamodule_args(corpus))  # one val song, on node 0
+    monkeypatch.setenv("GROUP_RANK", "0")
     dm = tdata.MultitrackDataModule(**_datamodule_args(corpus))
     assert [s for s, _ in dm.train_dataset.songs] == ["train_song0", "train_song2"]
 

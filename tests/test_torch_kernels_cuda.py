@@ -19,8 +19,15 @@ and branches bitwise, and its backward (K4's backward kernel) as the
 others. The fused steps (``train/fused.py``): two replays of a CUDA graph
 of 2 toy-width Method-1 steps against 4 eager steps (bitwise, cuDNN
 deterministic; also with the fx bus), a capture that fails raising, and
-``release`` handing the graph's pool back (``-k fused``).
+``release`` handing the graph's pool back (``-k fused``). The mesh
+(``diffmst_torch/parallel``, ``-k mesh``): two ranks on the card over gloo
+(NCCL refuses two ranks a device) take one dp = 2 step of the toy System
+of ``tests/_torch_mesh_ranks.py``, held against one process's step on the
+global batch (loss 1e-5, gradients 1e-3 of their norm, running statistics
+1e-4, cuDNN deterministic, TF32 off); fused steps over a gloo mesh raise.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -1062,3 +1069,76 @@ def test_fused_release_frees_the_graph_pool(card):
     steps.release()
     assert steps.graph is None
     assert torch.cuda.memory_reserved() <= reserved - steps.pool_bytes
+
+
+# ------------------------------------------------------------------ the mesh
+
+
+def test_mesh_dp2_on_one_card_matches_one_process(card, monkeypatch):
+    """Two ranks on the one card over gloo, one dp = 2 step each of the toy
+    System (float32, cuDNN deterministic), against one process's step on
+    the global batch: the loss, the gradients (of their norm) and the
+    running statistics."""
+    from diffmst_torch import parallel
+    from diffmst_torch.mixing.naive import draw_mix_params
+    from diffmst_torch.models import MixStyleTransferModel
+    from diffmst_torch.train import Batch
+    from diffmst_torch.utils.device import use_full_float32
+
+    # by its own name: the spawned ranks import it so, and the card's machine
+    # has another package named "tests"
+    monkeypatch.syspath_prepend(str(pathlib.Path(__file__).resolve().parent))
+    import _torch_mesh_ranks as ranks
+
+    model = MixStyleTransferModel.build(**ranks.SMALL, device="cpu", generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():  # faders near 0 dB, as tests/test_torch_train.py's: a loss near 3, not 300
+        for head in ("track_projection", "fx_bus_projection", "master_bus_projection"):
+            getattr(model.controller, head).weight.mul_(0.1)
+    weights = model.state_dict()
+    gen = torch.Generator().manual_seed(4)
+    ids = torch.zeros(2, 2, dtype=torch.int32)
+    batch = Batch(0.1 * torch.randn(2, 2, 8192, generator=gen), ids, ids, torch.zeros(2, 2, dtype=torch.bool),
+                  torch.zeros(2, 2, 8192))
+    single = ranks.step_system(weights, torch.float32, device=card)
+    params = draw_mix_params(batch.tracks, single.mix_console, gen)
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    use_full_float32()  # as the ranks: TF32's rounding would follow the batch's shape
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = ranks.step_result(single, single.gradients(batch, single.effect_flags(0), params))
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    got = parallel.launch(ranks.mesh_step, 2, (weights, batch, {False: (params, None)}, 2, 1, False, torch.float32),
+                          backend="gloo")
+    for r in got:
+        assert r["coordinate"] == (r["rank"], 0)
+        m = r[False]
+        assert abs(m["metrics"]["loss"] / ref["metrics"]["loss"] - 1) <= 1e-5
+        diff = sum(float(((m["grads"][k] - g).double() ** 2).sum()) for k, g in ref["grads"].items())
+        norm = sum(float((g.double() ** 2).sum()) for g in ref["grads"].values())
+        assert (diff / norm) ** 0.5 <= 1e-3
+        for k, b in ref["buffers"].items():
+            if b.is_floating_point():
+                assert float((m["buffers"][k] - b).abs().max()) <= 1e-4 * float(b.abs().max()), k
+
+
+def _fused_on_gloo():
+    from diffmst_torch import parallel
+    from diffmst_torch.train.fused import FusedSteps
+
+    mesh = parallel.make_mesh()
+    system = _fused_system(parallel.rank_device())
+    system.distribute(mesh)
+    with pytest.raises(ValueError, match="NCCL's can join and gloo's cannot"):
+        FusedSteps(system, system.effect_flags(0), 2)
+    return mesh.backend
+
+
+def test_mesh_fused_steps_on_gloo_raise(card):
+    """Fused steps over a mesh on gloo: the card cannot capture gloo's
+    collectives into a graph, so the steps raise and never run eagerly in
+    the graph's place (one rank, in this process)."""
+    from diffmst_torch import parallel
+
+    assert parallel.launch(_fused_on_gloo, 1, backend="gloo") == ["gloo"]
