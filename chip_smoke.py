@@ -122,7 +122,15 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      steps/s, the capture and instantiation times, peak memory; one replay
      traced (K2 and K2-bwd counted from the card's records, the busy
      share); then ``main_torch.py fit`` on ``naive+tpu.yaml`` with
-     ``trainer.fused_steps: 4`` over [cli]'s corpus, a subprocess;
+     ``trainer.fused_steps: 4`` over [cli]'s corpus, a subprocess; where
+     the device decides which steps update, the same checks for
+     (f) ``naive.yaml`` with ``skip_nonfinite_updates: 2`` and a NaN in
+     group 2 (one replay traced, its steps/s and busy share against
+     ``naive.yaml``'s) and (g) ``naive+tpu.yaml`` with
+     ``accumulate_grad_batches: 3`` over three replays (offsets 0, 1, 2),
+     and (h) ``naive+tpu.yaml`` groups of 4 x 8 x 262,144, then 131,072,
+     then 262,144 again, two graphs sharing one pool (its growth printed),
+     the replays held against eager steps bitwise;
  19. mesh: the device mesh (``diffmst_torch/parallel``) on the one card: a
      single-process step at the reference recipe, then two ranks over gloo
      (``parallel.launch``) at dp = 2 and at dp = 1 x mp = 2, each rank's
@@ -2919,42 +2927,70 @@ def _state_parts(system) -> dict:
             "moments": moments}
 
 
-def _fused_config(root: pathlib.Path, configs, name: str) -> dict:
+def _fused_config(root: pathlib.Path, configs, name: str, **checks) -> dict:
     """One configuration's [fused] checks at full width, cuDNN
     deterministic (the MRSTFT frames overlap by half, so the STFT's
     backward adds two values a sample in either order alike, and eager
-    steps are bitwise repeatable): 2 x K eager steps run twice from one
-    snapshot (eager's own spread), then the warm-up group and the capture,
-    then 2 groups of K replays from the same snapshot, held against the
-    eager runs; the steps/s, capture time and peak memory of each; one
-    replay traced. Returns the launches."""
+    steps are bitwise repeatable): ``groups`` x K eager steps run twice
+    from one snapshot (eager's own spread), then the warm-up group and the
+    capture, then ``groups`` replays of K from the same snapshot, held
+    against the eager runs; the steps/s, capture time and peak memory of
+    each; one replay traced where ``trace``. ``overrides`` replace fields of
+    the SystemConfig; ``poison`` is the index of a batch given a NaN.
+    Returns the launches and the rates."""
     torch.backends.cudnn.deterministic = True
     try:
-        return _fused_checks(root, configs, name)
+        return _fused_checks(root, configs, name, **checks)
     finally:
         torch.backends.cudnn.deterministic = False
 
 
-def _fused_checks(root: pathlib.Path, configs, name: str) -> dict:
+def _fused_system(root: pathlib.Path, configs, overrides=None):
+    """The System of ``configs`` at full width, the learning rate on a
+    cosine over 4K steps (each update its own lr), ``overrides`` on its
+    SystemConfig; with [training]'s batch."""
     import dataclasses
 
     import main_torch
-    from diffmst_torch.train import Batch
-    from diffmst_torch.train.fused import FusedSteps
     from diffmst_torch.train.system import lr_schedule
     from diffmst_torch.utils.config import load_config
-    from torch.profiler import ProfilerActivity, profile
 
-    k = FUSED_K
     out = io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.chdir(root):
         system, _, _ = main_torch.build_from_config(load_config([str(root / c) for c in configs]))
-    # the learning rate on a cosine over 4K steps: each update its own lr
-    system.config = dataclasses.replace(system.config, schedule="cosine", steps_per_epoch=4 * k, max_epochs=1)
+    system.config = dataclasses.replace(system.config, schedule="cosine", steps_per_epoch=4 * FUSED_K,
+                                        max_epochs=1, **(overrides or {}))
     system.lr_at = lr_schedule(system.config)
-    base = synth_batch(31)
+    return system, synth_batch(31)
+
+
+def _synced(fn):
+    """(fn's result, wall s, peak allocated bytes), the card synchronized."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _counters(system) -> tuple:
+    return system.step, system.updates, system.notfinite_count, system._mini_step
+
+
+def _fused_checks(root: pathlib.Path, configs, name: str, overrides=None, poison=None, groups=2,
+                  trace=True) -> dict:
+    from diffmst_torch.train import Batch
+    from diffmst_torch.train.fused import FusedSteps
+    from torch.profiler import ProfilerActivity, profile
+
+    k = FUSED_K
+    n = groups * k
+    system, base = _fused_system(root, configs, overrides)
     batches = [Batch(torch.roll(base.tracks, 4099 * i, dims=-1).cuda(), base.instrument_id, base.stereo_info,
-                     base.track_padding.cuda(), base.ref_mix.cuda()) for i in range(2 * k)]
+                     base.track_padding.cuda(), base.ref_mix.cuda()) for i in range(n)]
+    if poison is not None:
+        batches[poison].tracks[0, 0, 0] = float("nan")
     flags = system.effect_flags(0)
     steps = FusedSteps(system, flags, k)  # torch.optim.Adam becomes capturable
     launches = {}
@@ -2966,107 +3002,177 @@ def _fused_checks(root: pathlib.Path, configs, name: str) -> dict:
     reset_counts()
     system.train_step(batches[0], flags)  # the optimizer's state, before the snapshot
     start = _clone(system.state_dict())
-    lrs = [system.lr_at(system.updates + i) for i in range(2 * k)]
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    counters0 = _counters(system)
+    lrs = [system.lr_at(system.updates + i) for i in range(n)]
 
     def eager():
         system.load_state_dict(start)
-        losses, wall, peak = timed(lambda: [system.train_step(b, flags)["loss"] for b in batches])
-        return [float(x) for x in losses], _clone(_state_parts(system)), system.generator.get_state(), wall, peak
+        losses, wall, peak = _synced(lambda: [system.train_step(b, flags)["loss"] for b in batches])
+        return ([float(x) for x in losses], _clone(_state_parts(system)), system.generator.get_state(), wall, peak,
+                _counters(system))
 
     runs = [eager(), eager()]
     system.load_state_dict(start)
     reserved_before = torch.cuda.memory_reserved()
-    (_, first_s, capture_peak) = timed(lambda: steps(batches[:k]))
+    (_, first_s, capture_peak) = _synced(lambda: steps(batches[:k]))
     reserved = torch.cuda.memory_reserved()
     system.load_state_dict(start)
-    counters0 = (system.step, system.updates)
 
     def replays():
         got = []
-        for g in range(2):
+        for g in range(groups):
             got.append([{key: v.clone() for key, v in m.items()} for m in steps(batches[g * k:(g + 1) * k])])
         return got
 
-    groups, fused_s, replay_peak = timed(replays)
-    losses = [float(m["loss"]) for group in groups for m in group]
-    counters = (system.step - counters0[0], system.updates - counters0[1])
-    (l0, s0, g0, eager_s, eager_peak), (l1, s1, g1, eager_s2, _) = runs
+    replayed, fused_s, replay_peak = _synced(replays)
+    losses = [float(m["loss"]) for group in replayed for m in group]
+    (l0, s0, g0, eager_s, eager_peak, c0), (l1, s1, g1, eager_s2, _, c1) = runs
 
     def worst(got, a, b):
         """Per tensor: |got - a| and the eager spread |b - a|, of |a|
-        (norms); the worst ratio of the error to max(2 x spread, 1e-6)."""
+        (norms, NaN where a has NaN left out); the worst ratio of the error
+        to max(2 x spread, 1e-6); inf where the NaNs differ."""
         ratio, err_max, spread_max = 0.0, 0.0, 0.0
         for x, y, z in zip(got, a, b):
-            ref = max(float(y.double().norm()), 1e-30)
-            err = float((x.double() - y.double()).norm()) / ref
-            spread = float((z.double() - y.double()).norm()) / ref
+            nan = y.isnan()
+            if not (torch.equal(x.isnan(), nan) and torch.equal(z.isnan(), nan)):
+                ratio = float("inf")
+                continue
+            x, y, z = (t.double().masked_fill(nan, 0.0) for t in (x, y, z))
+            ref = max(float(y.norm()), 1e-30)
+            err = float((x - y).norm()) / ref
+            spread = float((z - y).norm()) / ref
             ratio = max(ratio, err / max(2.0 * spread, 1e-6))
             err_max, spread_max = max(err_max, err), max(spread_max, spread)
         return ratio, err_max, spread_max
 
+    def loss_ratio(x, a, b):
+        if np.isnan(a):
+            return 0.0 if np.isnan(x) and np.isnan(b) else float("inf")
+        return abs(x - a) / max(2.0 * abs(b - a), 1e-6 * abs(a))
+
     parts = _state_parts(system)
     figures = {part: worst(parts[part], s0[part], s1[part]) for part in parts}
-    loss_ratio = max(abs(x - a) / max(2.0 * abs(b - a), 1e-6 * abs(a)) for x, a, b in zip(losses, l0, l1))
+    worst_loss = max(loss_ratio(x, a, b) for x, a, b in zip(losses, l0, l1))
+    counters = _counters(system)
+    moved = tuple(c - c0 for c, c0 in zip(counters[:2], counters0[:2]))
     line(f"[fused] {name}: per-step losses, eager {l0}, eager again {l1}, replayed {losses}; lr a step {lrs}")
     line(f"[fused] {name}: replay vs eager, of each tensor's norm (worst error, eager's worst spread, worst"
          f" error / max(2 x spread, 1e-6)): " + "; ".join(
              f"{part} {e:.3g}, {sp:.3g}, {r:.3g}" for part, (r, e, sp) in figures.items())
-         + f"; losses {loss_ratio:.3g}; generator state equal {torch.equal(system.generator.get_state(), g0)}"
-         f" (eager runs {torch.equal(g0, g1)}); step and updates +{counters}")
-    require(max(loss_ratio, *(r for r, _, _ in figures.values())) <= 1.0,
-            f"{name}: the replays within 2 x eager's spread or 1e-6 ({figures}, losses {loss_ratio})")
-    require(torch.equal(system.generator.get_state(), g0) and counters == (2 * k, 2 * k),
-            f"{name}: the generator and the counters after the replays ({counters})")
-    require(len(set(lrs)) == 2 * k, f"{name}: each update its own learning rate ({lrs})")
+         + f"; losses {worst_loss:.3g}; generator state equal {torch.equal(system.generator.get_state(), g0)}"
+         f" (eager runs {torch.equal(g0, g1)}); step and updates +{moved}; (step, updates, non-finite count,"
+         f" mini-step) eager {c0}, {c1}, replayed {counters}")
+    require(max(worst_loss, *(r for r, _, _ in figures.values())) <= 1.0,
+            f"{name}: the replays within 2 x eager's spread or 1e-6 ({figures}, losses {worst_loss})")
+    require(torch.equal(system.generator.get_state(), g0) and counters == c0 == c1,
+            f"{name}: the generator and the counters after the replays ({counters}, eager {c0}, {c1})")
+    require(overrides or moved == (n, n), f"{name}: the step and updates moved by {n} ({moved})")
+    require(len(set(lrs)) == n, f"{name}: each update its own learning rate ({lrs})")
 
-    # one replay traced: K2 and K2-bwd from the card's records
-    batch_group = batches[:k]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(SPIN_LEAD):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        steps(batch_group)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events() if e.device_type == cuda and SPIN_KERNEL not in e.name]
-    k2 = sum("CompressorOp" in e.name for e in kernels)
-    k2_bwd = sum("CompressorBackwardOp" in e.name for e in kernels)
-    busy_us, end = 0.0, -np.inf  # the union of the records' intervals
-    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in kernels):
-        busy_us += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-    busy_ms = busy_us / 1e3
-    launch_calls = sorted({e.name for e in prof.events() if e.device_type != cuda and "Graph" in e.name})
-    add(read_counts())
-    eager_rate, fused_rate = 2 * k / eager_s, 2 * k / fused_s
-    line(f"[fused] {name}, cuDNN deterministic: sequential {eager_rate:.3f} steps/s ({eager_s:.3f} and {eager_s2:.3f} s for"
-         f" {2 * k} steps), fused {fused_rate:.3f} steps/s ({fused_s:.3f} s for 2 replays of {k});"
-         f" the warm-up group and the capture {first_s:.3f} s (capture {steps.capture_s:.3f} s,"
+    eager_rate, fused_rate = n / eager_s, n / fused_s
+    line(f"[fused] {name}, cuDNN deterministic: sequential {eager_rate:.3f} steps/s ({eager_s:.3f} and"
+         f" {eager_s2:.3f} s for {n} steps), fused {fused_rate:.3f} steps/s ({fused_s:.3f} s for {groups} replays"
+         f" of {k}); the warm-up group and the capture {first_s:.3f} s (capture {steps.capture_s:.3f} s,"
          f" instantiate {steps.instantiate_s:.3f} s);"
          f" peak memory sequential {eager_peak / 2**30:.2f} GiB, warm-up and capture"
          f" {capture_peak / 2**30:.2f} GiB, replays {replay_peak / 2**30:.2f} GiB; reserved before the"
          f" warm-up {reserved_before / 2**30:.2f} GiB (the eager runs' cache), after the capture"
          f" {reserved / 2**30:.2f} GiB (the cache handed back before and after it), of which the graph's pool"
          f" {steps.pool_bytes / 2**30:.2f} GiB")
-    span_ms = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
-    line(f"[fused] {name}: one replay traced: {traced_s:.3f} s wall, the card busy {busy_ms:.1f} ms (the union"
-         f" of its records; {100.0 * busy_ms / (traced_s * 1e3):.1f}% of the wall, {100.0 * busy_ms / span_ms:.1f}%"
-         f" of the {span_ms:.1f} ms from its first record to its last), {len(kernels)} records, K2 {k2} and K2-bwd"
-         f" {k2_bwd} kernels ({4 * k} and {2 * k} expected); host calls {launch_calls}")
-    require(k2 == 4 * k and k2_bwd == 2 * k, f"{name}: the traced replay's K2 and K2-bwd kernels ({k2}, {k2_bwd})")
-    del steps, system, start, runs, groups, parts
-    return dict(launches=launches, eager_rate=eager_rate, fused_rate=fused_rate)
+    out = dict(eager_rate=eager_rate, fused_rate=fused_rate)
+    if trace:
+        # one replay traced: K2 and K2-bwd from the card's records
+        batch_group = batches[:k]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPIN_LEAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(batch_group)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        cuda = torch.autograd.DeviceType.CUDA
+        kernels = [e for e in prof.events() if e.device_type == cuda and SPIN_KERNEL not in e.name]
+        k2 = sum("CompressorOp" in e.name for e in kernels)
+        k2_bwd = sum("CompressorBackwardOp" in e.name for e in kernels)
+        busy_us, end = 0.0, -np.inf  # the union of the records' intervals
+        for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+            busy_us += max(0.0, hi - max(lo, end))
+            end = max(end, hi)
+        busy_ms = busy_us / 1e3
+        launch_calls = sorted({e.name for e in prof.events() if e.device_type != cuda and "Graph" in e.name})
+        span_ms = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
+        out["busy"] = busy_ms / (traced_s * 1e3)
+        line(f"[fused] {name}: one replay traced: {traced_s:.3f} s wall, the card busy {busy_ms:.1f} ms (the union"
+             f" of its records; {100.0 * out['busy']:.1f}% of the wall, {100.0 * busy_ms / span_ms:.1f}%"
+             f" of the {span_ms:.1f} ms from its first record to its last), {len(kernels)} records, K2 {k2} and"
+             f" K2-bwd {k2_bwd} kernels ({4 * k} and {2 * k} expected); host calls {launch_calls}")
+        require(k2 == 4 * k and k2_bwd == 2 * k,
+                f"{name}: the traced replay's K2 and K2-bwd kernels ({k2}, {k2_bwd})")
+    add(read_counts())
+    steps.release()
+    del steps, system, start, runs, replayed, parts
+    return dict(out, launches=launches)
+
+
+def _fused_shapes(root: pathlib.Path) -> dict:
+    """(h) ``naive+tpu.yaml``, groups of K batches of 4 x 8 x 262,144, then
+    4 x 8 x 131,072, then 262,144 again: from one snapshot, eager steps;
+    then each shape's warm-up group and capture (the second graph in the
+    first one's pool, its growth printed), then from the snapshot the three
+    groups as replays, held against the eager steps bitwise (cuDNN
+    deterministic). Returns the launches."""
+    from diffmst_torch.train import Batch
+    from diffmst_torch.train.fused import FusedSteps
+
+    k = FUSED_K
+    system, base = _fused_system(root, TPU_CONFIGS)
+    full = [Batch(torch.roll(base.tracks, 4099 * i, dims=-1).cuda(), base.instrument_id, base.stereo_info,
+                  base.track_padding.cuda(), base.ref_mix.cuda()) for i in range(2 * k)]
+    half = [b._replace(tracks=b.tracks[..., :HALF].contiguous(), ref_mix=b.ref_mix[..., :HALF].contiguous())
+            for b in full[k:]]
+    groups = [full[:k], half, full[k:]]
+    flags = system.effect_flags(0)
+    steps = FusedSteps(system, flags, k)
+    reset_counts()
+    system.train_step(full[0], flags)
+    start = _clone(system.state_dict())
+
+    def eager():
+        return [float(system.train_step(b, flags)["loss"]) for g in groups for b in g]
+
+    want, eager_s, eager_peak = _synced(eager)
+    state, gen, counters = _clone(_state_parts(system)), system.generator.get_state(), _counters(system)
+    system.load_state_dict(start)
+    reserved_before = torch.cuda.memory_reserved()
+    _, first_s, _ = _synced(lambda: (steps(groups[0]), steps(groups[1])))
+    reserved = torch.cuda.memory_reserved()
+    system.load_state_dict(start)
+
+    def replays():
+        return [float(m["loss"]) for g in groups for m in steps(g)]
+
+    got, fused_s, replay_peak = _synced(replays)
+    launches = read_counts()
+    parts = _state_parts(system)
+    same = {part: all(torch.equal(x, y) for x, y in zip(parts[part], state[part])) for part in parts}
+    first, second = steps.captures
+    line(f"[fused] (h) naive+tpu.yaml, groups of {k} at 4 x 8 x 262,144, 131,072, then 262,144: eager losses {want},"
+         f" replayed {got}; bitwise {same}, generator {torch.equal(system.generator.get_state(), gen)}, counters"
+         f" {_counters(system)} (eager {counters})")
+    line(f"[fused] (h) graphs: 262,144 captured in {first['capture_s']:.3f} s, its pool"
+         f" {first['pool_growth'] / 2**30:.2f} GiB; 131,072 captured in {second['capture_s']:.3f} s into the same"
+         f" pool, which grew by {second['pool_growth'] / 2**30:.2f} GiB (to {steps.pool_bytes / 2**30:.2f} GiB;"
+         f" reserved {reserved_before / 2**30:.2f} GiB before the two warm-up groups, {reserved / 2**30:.2f} after);"
+         f" sequential {3 * k / eager_s:.3f} steps/s ({eager_s:.3f} s), 3 replays {3 * k / fused_s:.3f} steps/s"
+         f" ({fused_s:.3f} s), the two warm-up groups and captures {first_s:.3f} s; peak memory sequential"
+         f" {eager_peak / 2**30:.2f} GiB, replays {replay_peak / 2**30:.2f} GiB")
+    require(got == want and all(same.values()) and torch.equal(system.generator.get_state(), gen)
+            and _counters(system) == counters, f"(h): the replays of two shapes against eager steps ({same})")
+    steps.release()
+    return launches
 
 
 def phase_fused(root: pathlib.Path, tmp: pathlib.Path) -> dict:
@@ -3074,19 +3180,48 @@ def phase_fused(root: pathlib.Path, tmp: pathlib.Path) -> dict:
     steps as one CUDA graph replay, at full width, for ``naive.yaml``
     (float32, ``torch.optim.Adam``, capturable) and ``naive+tpu.yaml``
     (bf16 compute, OptaxAdam with a bf16 first moment), each held against
-    eager steps across a per-step learning rate (``_fused_config``); then
-    ``main_torch.py fit`` with ``trainer.fused_steps: 4`` over [cli]'s
-    corpus, a subprocess (naive+tpu.yaml: 2 groups). Returns the phase's
-    launches."""
+    eager steps across a per-step learning rate (``_fused_config``); where
+    the device decides which steps update, (f) ``naive.yaml`` with
+    ``skip_nonfinite_updates: 2`` and a poisoned batch and (g)
+    ``naive+tpu.yaml`` with ``accumulate_grad_batches: 3`` over three
+    replays, held so too; (h) groups of two batch shapes, two graphs in one
+    pool (``_fused_shapes``); then ``main_torch.py fit`` with
+    ``trainer.fused_steps: 4`` over [cli]'s corpus, a subprocess
+    (naive+tpu.yaml: 2 groups). Returns the phase's launches."""
     import yaml
 
     phase_t0 = time.perf_counter()
     launches = {}
-    for name, configs in (("naive.yaml", CLI_CONFIGS[:2] + CLI_CONFIGS[3:]), ("naive+tpu.yaml", TPU_CONFIGS)):
-        got = _fused_config(root, configs, name)
-        for key, v in got["launches"].items():
+
+    def add(counts):
+        for key, v in counts.items():
             launches[key] = launches.get(key, 0) + v
         torch.cuda.empty_cache()
+
+    naive = CLI_CONFIGS[:2] + CLI_CONFIGS[3:]
+    rates = {}
+    for name, configs, checks in (
+            ("naive.yaml", naive, {}), ("naive+tpu.yaml", TPU_CONFIGS, {}),
+            # the device decides which steps update: (f) a NaN in group 2's
+            # second batch, dropped (torch.optim.Adam's update selected);
+            # (g) groups that start 0, 1 and 2 steps into an accumulation
+            ("(f) naive.yaml, skip_nonfinite_updates 2", naive,
+             dict(overrides={"skip_nonfinite_updates": 2}, poison=FUSED_K + 1)),
+            ("(g) naive+tpu.yaml, accumulate_grad_batches 3", TPU_CONFIGS,
+             dict(overrides={"accumulate_grad_batches": 3}, groups=3, trace=False))):
+        got = _fused_config(root, configs, name, **checks)
+        rates[name] = got
+        add(got["launches"])
+    torch.backends.cudnn.deterministic = True
+    try:
+        add(_fused_shapes(root))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    base, masked = rates["naive.yaml"], rates["(f) naive.yaml, skip_nonfinite_updates 2"]
+    line(f"[fused] (f) against naive.yaml in this run: replays {masked['fused_rate']:.3f} against"
+         f" {base['fused_rate']:.3f} steps/s, {1e3 / masked['fused_rate'] - 1e3 / base['fused_rate']:+.1f} ms a step"
+         f" (the masked update, and the poisoned step's NaN arithmetic); the card busy"
+         f" {100.0 * masked['busy']:.1f}% against {100.0 * base['busy']:.1f}% of a traced replay")
 
     corpus = tmp / "corpus"
     p = tmp / "fused_fit.yaml"

@@ -44,7 +44,13 @@ the other one.
 An update's learning rate and OptaxAdam's bias corrections come from the
 host's counters, or from ``UpdateScalars`` (device tensors under a CUDA
 graph, which each replay refills: ``train/fused.py``, the Trainer's
-``fused_steps``).
+``fused_steps``). Where the device decides which steps update (non-finite
+skipping or an accumulation that a fused group does not divide), the
+optimizer's counters move into one tensor on the device
+(``count_on_device``), the step takes its scalars from a ``ScalarTable``
+indexed by them, and ``apply_gradients`` selects the updated state with
+``torch.where`` (``_apply_on_device``): bitwise what the host's decisions
+give.
 
 Over a device mesh (``diffmst_torch/parallel``; JAX ``system.py:141-195,
 :268-354``) each rank steps its share of the global batch: its dp row's
@@ -67,6 +73,7 @@ statistics to rank 0's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -87,7 +94,7 @@ from diffmst_torch.parallel.mesh import (assert_mesh_divisible, batch_rows, boun
 from diffmst_torch.utils.audio import batch_stereo_peak_normalize
 from diffmst_torch.utils.device import DeviceLike, resolve_device
 
-__all__ = ["SystemConfig", "EffectFlags", "Batch", "System", "UpdateScalars", "lr_schedule"]
+__all__ = ["SystemConfig", "EffectFlags", "Batch", "System", "UpdateScalars", "ScalarTable", "lr_schedule"]
 
 _ADAM_EPS = 1e-8  # optax.adam's and torch.optim.Adam's default
 
@@ -119,6 +126,49 @@ class UpdateScalars(NamedTuple):
     lr: Union[float, torch.Tensor]
     bc1: Union[float, torch.Tensor]
     bc2: Union[float, torch.Tensor]
+
+
+class ScalarTable(NamedTuple):
+    """The update scalars of a fused group whose updates the device decides
+    (``System.count_on_device``): float32 tensors of ``rows`` on the
+    parameters' device, whose row ``u % rows`` holds the learning rate after
+    ``u`` updates (``lr``) and row ``c % rows`` OptaxAdam's corrections of
+    its update at count ``c`` (``bc1``, ``bc2``), for the ``rows``
+    consecutive counts the group can reach. ``lr_now`` (0-dim) receives the
+    step's learning rate: ``torch.optim.Adam`` keeps it in its groups, so it
+    must not live in a CUDA graph's pool, which ``release`` frees."""
+
+    lr: torch.Tensor
+    bc1: torch.Tensor
+    bc2: torch.Tensor
+    lr_now: torch.Tensor
+
+
+class _Counter:
+    """An optimizer counter of its owner (``System``, ``OptaxAdam``): a host
+    int, or, once the owner's ``counters`` tensor holds it (element
+    ``index``, ``System.count_on_device``), that element, which a read
+    copies to the host (it synchronizes) and a write fills in place; each
+    such write adds one to the owner's ``counter_writes``."""
+
+    def __init__(self, index: int) -> None:
+        self.index = index
+
+    def __set_name__(self, owner, name: str) -> None:
+        self.attr = f"_host_{name.strip('_')}"
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        if obj.counters is not None:
+            return int(obj.counters[self.index])
+        return getattr(obj, self.attr)
+
+    def __set__(self, obj, value) -> None:
+        setattr(obj, self.attr, int(value))
+        if obj.counters is not None:
+            obj.counters[self.index].fill_(int(value))
+            obj.counter_writes += 1
 
 
 class EffectFlags(NamedTuple):
@@ -189,6 +239,13 @@ class System:
     console with the same mesh (see the module docstring).
     """
 
+    # the optimizer's counters (``_Counter``): updates applied (the
+    # schedule's count), the accumulation's mini-step, non-finite gradients
+    # in a row; the fourth element of ``counters`` is OptaxAdam's count
+    updates = _Counter(0)
+    _mini_step = _Counter(1)
+    notfinite_count = _Counter(2)
+
     def __init__(
         self,
         model: torch.nn.Module,
@@ -222,6 +279,8 @@ class System:
         self.device = device
         self.mesh = mesh  # JAX's System(mesh=): the track axis splits over its mp
         self.data_mesh = mesh  # the mesh whose ranks step together
+        self.counters: Optional[torch.Tensor] = None  # count_on_device
+        self.counter_writes = 0
         self._make_optimizer()
         self.step = 0  # train steps taken, as JAX's TrainState.step
         self.instrument_number_lookup = None
@@ -250,8 +309,8 @@ class System:
                 self.params, lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=_ADAM_EPS
             )
         self.lr_at = lr_schedule(cfg)
-        self.updates = 0  # optimizer updates applied: the schedule's count
-        self.notfinite_count = 0  # non-finite gradients in a row
+        self.updates = 0
+        self.notfinite_count = 0
         self._mini_step = 0
         self._acc = None  # running mean of the accumulated gradients
 
@@ -263,6 +322,23 @@ class System:
         in float64. ``OptaxAdam`` needs nothing."""
         if not isinstance(self.optimizer, OptaxAdam):
             _set_capturable(self.optimizer, True)
+
+    def count_on_device(self) -> torch.Tensor:
+        """Move the optimizer's counters (updates, the accumulation's
+        mini-step, the non-finite count, OptaxAdam's count) into one int64
+        tensor on the parameters' device, which steps given a
+        ``ScalarTable`` read and advance without the host (a CUDA graph
+        replays them: ``train/fused.py``). From then on a host read of a
+        counter synchronizes and a host write fills it in place. Returns
+        the tensor."""
+        if self.counters is None:
+            opt = self.optimizer
+            optax = isinstance(opt, OptaxAdam)
+            values = [self.updates, self._mini_step, self.notfinite_count, opt.count if optax else 0]
+            self.counters = torch.tensor(values, dtype=torch.int64).to(self.params[0].device)
+            if optax:
+                opt.counters = self.counters[3:]
+        return self.counters
 
     def distribute(self, mesh) -> None:
         """Step over ``mesh``'s ranks (the Trainer's mesh): each rank takes
@@ -643,7 +719,7 @@ class System:
     @torch.no_grad()
     @record_function("system.optimizer")
     def apply_gradients(self, grad_norm: torch.Tensor,
-                        scalars: Optional[UpdateScalars] = None) -> Dict[str, int]:
+                        scalars: Union[UpdateScalars, ScalarTable, None] = None) -> Dict[str, int]:
         """The second half of a train step: optax's
         ``apply_if_finite(MultiSteps(chain(clip_by_global_norm, adam)))``
         on the gradients in ``.grad``, whose global norm is ``grad_norm``
@@ -651,10 +727,13 @@ class System:
         After it, ``.grad`` holds the clipped gradients the optimizer took;
         with ``flatten_optimizer`` it took a clipped, ravelled copy, and
         ``.grad`` keeps the unclipped ones. ``scalars`` replace the learning
-        rate and bias corrections of the counters (``update_scalars``)."""
+        rate and bias corrections of the counters (``update_scalars``); a
+        ``ScalarTable`` lets the device decide (``_apply_on_device``)."""
         cfg = self.config
         metrics = {}
         grads = [p.grad for p in self.params]
+        if isinstance(scalars, ScalarTable):
+            return self._apply_on_device(grads, grad_norm, scalars)
         if cfg.skip_nonfinite_updates > 0:
             finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
@@ -666,8 +745,11 @@ class System:
             n = self._mini_step
             if self._acc is None:
                 self._acc = [torch.zeros_like(g) for g in grads]
+            # a device tensor divides as the device-decided step's does (a
+            # host number divides otherwise on the card)
+            divisor = torch.full((), n + 1, dtype=torch.int64, device=grads[0].device)
             for a, g in zip(self._acc, grads):
-                a.mul_(n).add_(g).div_(n + 1)
+                a.mul_(n).add_(g).div_(divisor)
             self._mini_step = (n + 1) % k
             if self._mini_step:
                 return metrics
@@ -675,13 +757,7 @@ class System:
                 g.copy_(a)
                 a.zero_()
             grad_norm = _global_norm(grads)
-        if cfg.flatten_optimizer:  # one ravelled vector; its norm is the same global norm
-            grads = [torch.cat([g.reshape(-1) for g in grads])]
-        # clip_by_global_norm as optax takes it, (g / |g|) * c where |g| >= c,
-        # else g as it is (g / 1 * 1), on the card, no sync
-        clip = grad_norm >= cfg.grad_clip
-        torch._foreach_div_(grads, torch.where(clip, grad_norm, 1.0))
-        torch._foreach_mul_(grads, torch.where(clip, cfg.grad_clip, 1.0).to(grad_norm.dtype))
+        grads = self._clip(grads, grad_norm)
         if scalars is None:
             scalars = self.update_scalars(self.updates, getattr(self.optimizer, "count", 0) + 1)
             if grads[0].is_cuda and (isinstance(self.optimizer, OptaxAdam)
@@ -698,6 +774,89 @@ class System:
                 group["lr"] = lr
             self.optimizer.step()
         self.updates += 1
+        return metrics
+
+    def _clip(self, grads, grad_norm: torch.Tensor):
+        """The gradients the chain's Adam takes: ravelled into one vector
+        with ``flatten_optimizer``, then clipped by their global norm."""
+        cfg = self.config
+        if cfg.flatten_optimizer:  # one ravelled vector; its norm is the same global norm
+            grads = [torch.cat([g.reshape(-1) for g in grads])]
+        # clip_by_global_norm as optax takes it, (g / |g|) * c where |g| >= c,
+        # else g as it is (g / 1 * 1), on the card, no sync
+        clip = grad_norm >= cfg.grad_clip
+        torch._foreach_div_(grads, torch.where(clip, grad_norm, 1.0))
+        torch._foreach_mul_(grads, torch.where(clip, cfg.grad_clip, 1.0).to(grad_norm.dtype))
+        return grads
+
+    def _apply_on_device(self, grads, grad_norm: torch.Tensor, table: ScalarTable) -> Dict[str, torch.Tensor]:
+        """``apply_gradients`` with its decisions taken on the device, from
+        the counters of ``count_on_device`` (optax's state as data, as
+        JAX's jitted step holds it): ``finite`` (every gradient finite);
+        ``nf = 0 if finite else nf + 1``; ``apply = finite or nf > skip``;
+        the accumulated mean ``acc = (acc * m + g) / (m + 1)`` and ``m = (m
+        + 1) % a`` where ``apply``; ``update = apply and m == 0``. The clip
+        and Adam always run, and every tensor they change keeps its old
+        value where ``update`` is false (a ``torch.where``, so that a NaN
+        the update made is dropped too); the learning rate and corrections
+        come from ``table`` at the update and OptaxAdam counts. The host
+        reads nothing, so a CUDA graph holds it."""
+        cfg = self.config
+        updates, mini, nf, count = self.counters.unbind()
+        metrics = {}
+        apply = None  # None: every step counts
+        if cfg.skip_nonfinite_updates > 0:
+            # g * 0 is 0 where g is finite, NaN where not; a norm of zeros
+            # cannot overflow
+            finite = torch.stack(torch._foreach_norm(torch._foreach_mul(grads, 0.0))).sum() == 0
+            nf.copy_(torch.where(finite, 0, nf + 1))
+            metrics["notfinite_count"] = nf.clone()
+            apply = finite | (nf > cfg.skip_nonfinite_updates)
+        update = apply
+        k = cfg.accumulate_grad_batches
+        if k > 1:
+            if self._acc is None:
+                self._acc = [torch.zeros_like(g) for g in grads]
+            divisor = mini + 1  # as the host's path divides, by a device tensor
+            for a, g in zip(self._acc, grads):
+                if apply is None:
+                    a.mul_(mini).add_(g).div_(divisor)
+                else:
+                    torch.where(apply, a.mul(mini).add_(g).div_(divisor), a, out=a)
+            stepped = torch.remainder(divisor, k)
+            mini.copy_(stepped if apply is None else torch.where(apply, stepped, mini))
+            update = mini == 0 if apply is None else apply & (mini == 0)
+            torch._foreach_copy_(grads, self._acc)
+            for a in self._acc:
+                a.masked_fill_(update, 0.0)
+            grad_norm = _global_norm(grads)
+        if update is None:  # nothing to decide: every step updates
+            update = torch.ones((), dtype=torch.bool, device=mini.device)
+        grads = self._clip(grads, grad_norm)
+        rows = table.lr.shape[0]
+        torch.index_select(table.lr, 0, torch.remainder(updates, rows).view(1), out=table.lr_now.view(1))
+        lr = table.lr_now
+        opt = self.optimizer
+        if isinstance(opt, OptaxAdam):
+            at = torch.remainder(count, rows).view(1)
+            corrections = (table.bc1.index_select(0, at).view(()), table.bc2.index_select(0, at).view(()))
+            with _unless(update, opt.params + opt.mu + opt.nu):
+                opt.apply(grads, lr, corrections)
+            count.add_(update)
+        else:
+            _init_adam_state(opt)
+            host = not opt.param_groups[0]["capturable"]
+            if host:  # on the CPU: it takes the host's float, and keeps the last update's
+                last, lr = opt.param_groups[0]["lr"], self.lr_at(int(updates))
+            state = [v for st in opt.state.values() for v in st.values() if isinstance(v, torch.Tensor)]
+            with _unless(update, self.params + state):
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.step()
+            if host and not bool(update):
+                for group in opt.param_groups:
+                    group["lr"] = last
+        updates.add_(update)
         return metrics
 
     def update_scalars(self, updates: int, count: int) -> UpdateScalars:
@@ -761,8 +920,12 @@ class OptaxAdam:
     each; the update is unravelled onto the parameters.
     """
 
+    count = _Counter(0)  # updates taken (``System.count_on_device`` may hold it)
+
     def __init__(self, params, b1: float, b2: float, eps: float,
                  mu_dtype: Optional[torch.dtype] = None, flat: bool = False):
+        self.counters: Optional[torch.Tensor] = None
+        self.counter_writes = 0
         self.params = list(params)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.flat = flat
@@ -795,9 +958,15 @@ class OptaxAdam:
         ``corrections`` (bc1, bc2) of this update (default: from the
         count). ``lr`` and the corrections may be 0-dim tensors on the
         gradients' device."""
-        b1, b2 = self.b1, self.b2
         self.count += 1
-        bc1, bc2 = self.corrections(self.count) if corrections is None else corrections
+        self.apply(grads, lr, self.corrections(self.count) if corrections is None else corrections)
+
+    @torch.no_grad()
+    def apply(self, grads, lr, corrections) -> None:
+        """``step``'s update at learning rate ``lr`` and bias corrections
+        (bc1, bc2), without moving the count."""
+        b1, b2 = self.b1, self.b2
+        bc1, bc2 = corrections
         b1_mu = float(torch.tensor(b1, dtype=self.mu[0].dtype))
         mu32 = torch._foreach_mul(grads, 1.0 - b1)
         torch._foreach_add_(mu32, torch._foreach_mul(self.mu, b1_mu))
@@ -829,6 +998,32 @@ class OptaxAdam:
                                  f"{tuple(live.shape)} {live.dtype}")
             live.copy_(saved)
         self.count = int(state["count"])
+
+
+@contextlib.contextmanager
+def _unless(update: torch.Tensor, tensors):
+    """Run the block, then give back each of ``tensors`` its value from
+    before it where the 0-dim bool ``update`` is false."""
+    old = [torch.empty_like(t) for t in tensors]
+    torch._foreach_copy_(old, tensors)
+    yield
+    for t, o in zip(tensors, old):
+        torch.where(update, t, o, out=t)
+
+
+def _init_adam_state(optimizer: torch.optim.Adam) -> None:
+    """Give every parameter of ``torch.optim.Adam`` the state its first
+    ``step()`` would make (a zero step count, zero moments), so that an
+    update the device may drop has a state to keep."""
+    capturable = optimizer.param_groups[0]["capturable"]
+    dtype = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=dtype, device=p.device if capturable else "cpu")
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
 def _set_capturable(optimizer: torch.optim.Adam, capturable: bool) -> None:

@@ -25,9 +25,10 @@ System in place.
     System's ``system.*`` ranges (``record_function``) are in it;
   * ``fused_steps`` K > 1: each group of K batches runs as one unit
     (``train/fused.py``): on the card one replay of a CUDA graph of K
-    steps, built for each epoch's ``EffectFlags`` when first seen (the
-    flags only move forward, so the last flags' graph is freed then); on
-    the CPU the same staged steps eagerly. Batch order, random draws and
+    steps, built for each epoch's ``EffectFlags`` and batch shape when
+    first seen (the flags only move forward, so the last flags' graphs are
+    freed then; a ``fused:`` line a graph); on the CPU the same staged
+    steps eagerly. Batch order, random draws and
     updates are those of K sequential steps; an epoch whose batches do not
     fill its groups raises ``ValueError``, as JAX's does. The log and
     checkpoint points are JAX's: after the group in which the step count
@@ -262,13 +263,17 @@ class Trainer:
                     tracing = trace(self.profile_dir)
                     tracing.__enter__()
                 if k > 1:
-                    captured = fused.graph is not None
+                    graphs = len(fused.captures)
                     metrics = fused(group)[-1]
                     batch = group[-1]
-                    if not captured and fused.graph is not None and self.is_main:
-                        print(f"fused: {k} steps a CUDA graph replay from epoch {epoch}'s group {i + 2} on,"
-                              f" captured in {fused.capture_s:.3f} s, instantiated in {fused.instantiate_s:.3f} s,"
-                              f" its pool {fused.pool_bytes / 2**30:.2f} GiB", flush=True)
+                    if len(fused.captures) > graphs and self.is_main:
+                        c = fused.captures[-1]
+                        pool = (f"its pool {c['pool_growth'] / 2**30:.2f} GiB" if graphs == 0 else
+                                f"the shared pool grew by {c['pool_growth'] / 2**30:.2f} GiB to"
+                                f" {fused.pool_bytes / 2**30:.2f} GiB")
+                        print(f"fused: {k} steps a CUDA graph replay from epoch {epoch}'s group {i + 2} on for"
+                              f" batches of {c['shapes'][0]}, captured in {c['capture_s']:.3f} s, instantiated in"
+                              f" {c['instantiate_s']:.3f} s, {pool}", flush=True)
                 else:
                     metrics = system.train_step(group, flags)
                     batch = group

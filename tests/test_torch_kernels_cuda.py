@@ -18,8 +18,11 @@ ballistics smoother's kernel is held at 1e-5 dB, its recorded coefficients
 and branches bitwise, and its backward (K4's backward kernel) as the
 others. The fused steps (``train/fused.py``): two replays of a CUDA graph
 of 2 toy-width Method-1 steps against 4 eager steps (bitwise, cuDNN
-deterministic; also with the fx bus), a capture that fails raising, and
-``release`` handing the graph's pool back (``-k fused``). The mesh
+deterministic; also with the fx bus), the device deciding which steps
+update (a poisoned batch under ``skip_nonfinite_updates=2``; an
+accumulation of 3 under K = 4 at offsets 0, 1 and 2; bitwise), a capture
+that fails raising, and ``release`` handing the graph's pool back (``-k
+fused``). The mesh
 (``diffmst_torch/parallel``, ``-k mesh``): two ranks on the card over gloo
 (NCCL refuses two ranks a device) take one dp = 2 step of the toy System
 of ``tests/_torch_mesh_ranks.py``, held against one process's step on the
@@ -1027,6 +1030,81 @@ def test_fused_replay_equals_eager_steps(card, monkeypatch, config):
         spread = float((a.double() - b.double()).abs().max())
         err = float((got.double() - a.double()).abs().max())
         assert err <= max(2 * spread, 1e-6 * float(a.double().abs().max())), (err, spread)
+
+
+def _same_or_nan(got, want, what):
+    """Bitwise, NaN where ``want`` has NaN."""
+    assert torch.equal(got.isnan(), want.isnan()), what
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)), what
+
+
+def _device_decided_replays(card, k, batches, first=1, **config):
+    """``first`` eager steps (the optimizer's state exists after them), then
+    eager ``train_step`` calls over ``batches`` from one snapshot, then the
+    warm-up group and the capture, then the replays of the same groups from
+    the snapshot (``FusedSteps`` where the device decides which steps
+    update), cuDNN deterministic. Returns the System, the eager losses,
+    state and counters, and the replays' losses and K2 launches."""
+    from diffmst_torch.train.fused import FusedSteps
+
+    system = _fused_system(card, **config)
+    flags = system.effect_flags(0)
+    steps = FusedSteps(system, flags, k)
+    assert steps.on_device
+    for b in _fused_batches(card, first):
+        system.train_step(b, flags)
+    start = _clone(system.state_dict())
+    counters = lambda: (system.step, system.updates, system.notfinite_count, system._mini_step)  # noqa: E731
+    want = [float(system.train_step(b, flags)["loss"]) for b in batches]
+    eager = _clone(_flat_state(system)), system.generator.get_state(), counters()
+    system.load_state_dict(start)
+    steps(batches[:k])  # the warm-up group, then the capture
+    assert steps.graph is not None and system.counters is not None
+    system.load_state_dict(start)
+    before = comp_fused.compressor_fused_gain.launches
+    got = [float(m["loss"]) for i in range(0, len(batches), k) for m in steps(batches[i:i + k])]
+    torch.cuda.synchronize()
+    return system, want, eager, got, comp_fused.compressor_fused_gain.launches - before
+
+
+def test_fused_poisoned_replay_equals_eager_steps(card, monkeypatch):
+    """Non-finite skipping (``skip_nonfinite_updates=2``) inside two
+    replays of a K = 2 graph, a NaN in the first batch of the second
+    group: the replays equal four eager steps bitwise (cuDNN
+    deterministic), losses (NaN at the poisoned step), parameters,
+    BatchNorm statistics (NaN from it on), moments, generator and
+    counters; the poisoned update is dropped, the next one taken."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    batches = _fused_batches(card, 4)
+    tracks = batches[2].tracks.clone()
+    tracks[0, 0, 0] = float("nan")
+    batches[2] = batches[2]._replace(tracks=tracks)
+    system, want, (state, gen, counters), got, k2 = _device_decided_replays(card, 2, batches,
+                                                                            skip_nonfinite_updates=2)
+    np.testing.assert_array_equal(np.array(got), np.array(want))
+    assert np.isnan(got[2]) and not np.isnan(got[3])
+    for i, (x, y) in enumerate(zip(_flat_state(system), state)):
+        _same_or_nan(x, y, i)
+    assert torch.equal(system.generator.get_state(), gen)
+    assert (system.step, system.updates, system.notfinite_count, system._mini_step) == counters == (5, 4, 0, 0)
+    assert k2 == 16
+    assert not any(p.isnan().any() for p in system.params)
+
+
+def test_fused_accumulation_at_every_offset_equals_eager_steps(card, monkeypatch):
+    """An accumulation of 3 under K = 4: three replays start 0, 1 and 2
+    steps into an accumulation, one graph for all three (the device holds
+    the mini-step); they equal twelve eager steps bitwise (cuDNN
+    deterministic)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    batches = _fused_batches(card, 12)
+    system, want, (state, gen, counters), got, _ = _device_decided_replays(card, 4, batches, first=3,
+                                                                           accumulate_grad_batches=3)
+    assert got == want
+    for i, (x, y) in enumerate(zip(_flat_state(system), state)):
+        assert torch.equal(x, y), i
+    assert torch.equal(system.generator.get_state(), gen)
+    assert (system.step, system.updates, system._mini_step) == counters[:2] + (counters[3],) == (15, 5, 0)
 
 
 def test_fused_capture_failure_raises(card, monkeypatch):
