@@ -139,7 +139,18 @@ port's kernels from ``diffmst_torch/kernels/csrc`` into
      steps/s and peak memory a rank; ``main_torch.py fit`` with
      ``trainer.devices: 2`` refused with JAX's message; a one-rank NCCL
      ``trainer.mesh: {dp: 1}`` fit with ``fused_steps: 4`` against the fit
-     without the mesh.
+     without the mesh;
+ 20. convergence: the demo scripts' recipes at full width
+     (``scripts/{train_demo,probe_floor,train_demo_method2,
+     train_demo_16track}_torch.py``): ``naive+tpu.yaml`` on 4 x 8 x 262,144
+     stems synthesized on the card every step, the untrained probe on 4
+     held-out batches, one epoch of 150 steps at lr 1e-5, the probe again,
+     below the untrained one and the equal-gain-sum baseline; the oracle
+     floors of the same probe set; Method 2 with ``AudioFeatureLoss`` and
+     an accumulation of 2, two replays of 6 steps, and 16 tracks with padded
+     slots and the fx bus, one replay of 8, each against eager steps from
+     one snapshot (cuDNN's and PyTorch's deterministic kernels); their K2
+     and K2-bwd launches.
 
 Every check raises on failure. The line before the last is a JSON object
 with one entry per kernel; the last line is the result JSON. Float32
@@ -2981,16 +2992,30 @@ def _counters(system) -> tuple:
 def _fused_checks(root: pathlib.Path, configs, name: str, overrides=None, poison=None, groups=2,
                   trace=True) -> dict:
     from diffmst_torch.train import Batch
-    from diffmst_torch.train.fused import FusedSteps
-    from torch.profiler import ProfilerActivity, profile
 
-    k = FUSED_K
-    n = groups * k
+    n = groups * FUSED_K
     system, base = _fused_system(root, configs, overrides)
     batches = [Batch(torch.roll(base.tracks, 4099 * i, dims=-1).cuda(), base.instrument_id, base.stereo_info,
                      base.track_padding.cuda(), base.ref_mix.cuda()) for i in range(n)]
     if poison is not None:
         batches[poison].tracks[0, 0, 0] = float("nan")
+    return _replay_checks(system, batches, name, FUSED_K, groups, trace=trace,
+                          expect=None if overrides else (n, n))
+
+
+def _replay_checks(system, batches, name: str, k: int, groups: int, tag="[fused]", trace=True, warm=1,
+                   distinct_lrs=True, expect=None) -> dict:
+    """``groups`` x ``k`` steps of ``system`` over ``batches`` (one a step)
+    from one snapshot, taken after ``warm`` eager steps (the optimizer's
+    state, whole accumulations): eagerly twice (eager's own spread), then
+    the warm-up group and the capture, then ``groups`` replays, held against
+    the eager runs (see ``_fused_config``); ``expect`` the (step, updates)
+    the replays must move by, ``distinct_lrs`` each update its own learning
+    rate. Returns the launches and the rates."""
+    from diffmst_torch.train.fused import FusedSteps
+    from torch.profiler import ProfilerActivity, profile
+
+    n = groups * k
     flags = system.effect_flags(0)
     steps = FusedSteps(system, flags, k)  # torch.optim.Adam becomes capturable
     launches = {}
@@ -3000,7 +3025,8 @@ def _fused_checks(root: pathlib.Path, configs, name: str, overrides=None, poison
             launches[key] = launches.get(key, 0) + v
 
     reset_counts()
-    system.train_step(batches[0], flags)  # the optimizer's state, before the snapshot
+    for b in batches[:warm]:
+        system.train_step(b, flags)  # the optimizer's state, before the snapshot
     start = _clone(system.state_dict())
     counters0 = _counters(system)
     lrs = [system.lr_at(system.updates + i) for i in range(n)]
@@ -3056,8 +3082,8 @@ def _fused_checks(root: pathlib.Path, configs, name: str, overrides=None, poison
     worst_loss = max(loss_ratio(x, a, b) for x, a, b in zip(losses, l0, l1))
     counters = _counters(system)
     moved = tuple(c - c0 for c, c0 in zip(counters[:2], counters0[:2]))
-    line(f"[fused] {name}: per-step losses, eager {l0}, eager again {l1}, replayed {losses}; lr a step {lrs}")
-    line(f"[fused] {name}: replay vs eager, of each tensor's norm (worst error, eager's worst spread, worst"
+    line(f"{tag} {name}: per-step losses, eager {l0}, eager again {l1}, replayed {losses}; lr a step {lrs}")
+    line(f"{tag} {name}: replay vs eager, of each tensor's norm (worst error, eager's worst spread, worst"
          f" error / max(2 x spread, 1e-6)): " + "; ".join(
              f"{part} {e:.3g}, {sp:.3g}, {r:.3g}" for part, (r, e, sp) in figures.items())
          + f"; losses {worst_loss:.3g}; generator state equal {torch.equal(system.generator.get_state(), g0)}"
@@ -3067,11 +3093,11 @@ def _fused_checks(root: pathlib.Path, configs, name: str, overrides=None, poison
             f"{name}: the replays within 2 x eager's spread or 1e-6 ({figures}, losses {worst_loss})")
     require(torch.equal(system.generator.get_state(), g0) and counters == c0 == c1,
             f"{name}: the generator and the counters after the replays ({counters}, eager {c0}, {c1})")
-    require(overrides or moved == (n, n), f"{name}: the step and updates moved by {n} ({moved})")
-    require(len(set(lrs)) == n, f"{name}: each update its own learning rate ({lrs})")
+    require(expect is None or moved == expect, f"{name}: the step and updates moved by {expect} ({moved})")
+    require(not distinct_lrs or len(set(lrs)) == n, f"{name}: each update its own learning rate ({lrs})")
 
     eager_rate, fused_rate = n / eager_s, n / fused_s
-    line(f"[fused] {name}, cuDNN deterministic: sequential {eager_rate:.3f} steps/s ({eager_s:.3f} and"
+    line(f"{tag} {name}, cuDNN deterministic: sequential {eager_rate:.3f} steps/s ({eager_s:.3f} and"
          f" {eager_s2:.3f} s for {n} steps), fused {fused_rate:.3f} steps/s ({fused_s:.3f} s for {groups} replays"
          f" of {k}); the warm-up group and the capture {first_s:.3f} s (capture {steps.capture_s:.3f} s,"
          f" instantiate {steps.instantiate_s:.3f} s);"
@@ -3105,7 +3131,7 @@ def _fused_checks(root: pathlib.Path, configs, name: str, overrides=None, poison
         launch_calls = sorted({e.name for e in prof.events() if e.device_type != cuda and "Graph" in e.name})
         span_ms = (max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3
         out["busy"] = busy_ms / (traced_s * 1e3)
-        line(f"[fused] {name}: one replay traced: {traced_s:.3f} s wall, the card busy {busy_ms:.1f} ms (the union"
+        line(f"{tag} {name}: one replay traced: {traced_s:.3f} s wall, the card busy {busy_ms:.1f} ms (the union"
              f" of its records; {100.0 * out['busy']:.1f}% of the wall, {100.0 * busy_ms / span_ms:.1f}%"
              f" of the {span_ms:.1f} ms from its first record to its last), {len(kernels)} records, K2 {k2} and"
              f" K2-bwd {k2_bwd} kernels ({4 * k} and {2 * k} expected); host calls {launch_calls}")
@@ -3463,6 +3489,154 @@ def phase_mesh(root: pathlib.Path, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ convergence
+
+CONV_STEPS = 150  # one epoch of the train demo, at logs/train_demo_tpu.json's lr and schedule
+M2_K, M2_GROUPS = 6, 2  # Method 2: two replays of 6 steps, an accumulation of 2
+S16_K = 8  # 16 tracks: one replay of 8 steps
+
+
+def demo_scripts(root: pathlib.Path):
+    """The port's demo scripts (``scripts/*_torch.py``), imported by name
+    as they import each other: (train_demo, probe_floor, train_demo_method2,
+    train_demo_16track)."""
+    import importlib
+
+    if str(root / "scripts") not in sys.path:
+        sys.path.insert(0, str(root / "scripts"))
+    return tuple(importlib.import_module(f"{n}_torch")
+                 for n in ("train_demo", "probe_floor", "train_demo_method2", "train_demo_16track"))
+
+
+def demo_batches(dm, n: int) -> list:
+    """The first ``n`` batches of ``dm``'s training loader as ``Batch``es on
+    the card, as the Trainer's prefetch makes them."""
+    import itertools
+
+    from diffmst_torch.train.trainer import _to_batch
+
+    return [_to_batch(raw, torch.device("cuda")) for raw in itertools.islice(dm.train_dataloader(), n)]
+
+
+def _learning(demo, floor) -> dict:
+    """(a) and (b): the train demo's Trainer at full width, the probe set's
+    baseline and oracle floors, the untrained probe, one epoch, the probe."""
+    from diffmst_torch.losses import MultiResolutionSTFTLoss
+    from diffmst_torch.train import Trainer
+
+    dev = torch.device("cuda")
+    loss_fn = MultiResolutionSTFTLoss()
+    system = demo.build_system(dev, loss_fn, steps_per_epoch=CONV_STEPS, max_epochs=1, lr=1e-5, schedule="none")
+    dm = demo.SyntheticDM(CONV_STEPS, device=dev)
+    collect = demo._CollectVal()
+    trainer = Trainer(system, dm, max_epochs=1, log_every_n_steps=10, check_val_every_n_epoch=1,
+                      deterministic_val=True, enable_checkpointing=False, callbacks=[collect], seed=demo.SEED)
+    launches = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    floors = floor.probe_floors(dm, system.mix_console, loss_fn, dm.n_probe)
+    baseline = floors["equal_gain_sum_baseline"]
+    untrained = trainer.validate()["loss"]
+    anchor_s = time.perf_counter() - t0
+    launches.update(read_counts())
+
+    losses = []
+    train_step = system.train_step
+
+    def recording(batch, flags):  # every step's loss, kept on the card
+        metrics = train_step(batch, flags)
+        losses.append(metrics["loss"].detach())
+        return metrics
+
+    system.train_step = recording
+    reset_counts()
+    _, fit_s, peak = _synced(trainer.fit)
+    fit_counts = read_counts()
+    for key, v in fit_counts.items():
+        launches[key] = launches.get(key, 0) + v
+    trail = torch.stack(losses).float().cpu().numpy()
+    probe = collect.losses
+    sps = [h["steps_per_sec"] for h in trainer.history if "steps_per_sec" in h]
+    line(f"[convergence] (a) naive+tpu.yaml at {'x'.join(map(str, dm.shape))}, fresh stems synthesized on the card"
+         f" every step, lr 1e-5, schedule none: probe (4 held-out batches, deterministic validation) untrained"
+         f" {untrained:.4f}, after {CONV_STEPS} steps {probe[-1]:.4f}; equal-gain-sum baseline {baseline:.4f};"
+         f" curve {[round(x, 4) for x in probe]}")
+    line(f"[convergence] (a) train loss every 10th step {[round(float(x), 4) for x in trail[::10]]}; first third"
+         f" {trail[:CONV_STEPS // 3].mean():.4f}, last third {trail[-(CONV_STEPS // 3):].mean():.4f}; logged steps/s"
+         f" {[round(x, 3) for x in sps]} (median {np.median(sps):.3f}); the fit {fit_s:.1f} s with its probe pass,"
+         f" peak {peak / 2**30:.2f} GiB; baseline, floors and untrained probe {anchor_s:.1f} s; the fit's K2"
+         f" {fit_counts['K2']} and K2-bwd {fit_counts['K2-bwd']} launches")
+    line(f"[convergence] (b) oracle floors of the same probe set: half render {floors['floor_half_render_mean']:.4f},"
+         f" clipped to +/-48 dB {floors['floor_half_render_clipped_mean']:.4f}, full render cropped"
+         f" {floors['floor_full_render_crop_mean']:.3g}; the output fader needs up to {floors['max_abs_needed_db']} dB"
+         f" (within range: {floors['output_fader_within_range']})")
+    require(len(trail) == CONV_STEPS and bool(np.isfinite(trail).all()),
+            f"(a) the loss finite at every one of the {CONV_STEPS} steps")
+    require(len(probe) == 2 and probe[0] == untrained, f"(a) two probe passes, the first the untrained ({probe})")
+    require(probe[-1] < untrained and probe[-1] < baseline,
+            f"(a) the probe after the epoch ({probe[-1]:.4f}) below the untrained probe ({untrained:.4f}) and the"
+            f" equal-gain-sum baseline ({baseline:.4f})")
+    require(fit_counts["K2-bwd"] == 2 * CONV_STEPS and fit_counts["K2"] >= 4 * CONV_STEPS,
+            f"(a) 4 K2 and 2 K2-bwd launches a step ({fit_counts})")
+    require(floors["floor_half_render_clipped_mean"] < baseline, "(b) the clipped oracle floor below the baseline")
+    require(abs(floors["floor_full_render_crop_mean"]) <= 1e-3, "(b) the full render's crop about 0")
+    return launches
+
+
+def phase_convergence(root: pathlib.Path) -> dict:
+    """The convergence demos (``scripts/*_torch.py``) at full width on the
+    card: (a) ``train_demo_torch``'s Trainer on ``naive+tpu.yaml``, 4 x 8 x
+    262,144 with fresh stems synthesized on the card every step, lr 1e-5
+    and no schedule: the untrained probe on 4 held-out batches, one epoch of
+    150 sequential steps, the probe again, which must be below the untrained
+    one and the equal-gain-sum baseline, the loss finite at every step; (b)
+    ``probe_floor_torch``'s oracle floors of the same probe set (the clipped
+    one below the baseline, the full render's crop about 0); (c)
+    ``train_demo_method2_torch``'s recipe (Method 2, ``AudioFeatureLoss``,
+    micro-batch 2 x an accumulation of 2): 12 steps as two replays of 6
+    against the same steps run eagerly from one snapshot; (d)
+    ``train_demo_16track_torch``'s (16 tracks, padded slots, the fx bus):
+    one replay of 8 against 8 eager steps; (c) and (d) with cuDNN's and
+    PyTorch's deterministic kernels, held as [fused] holds its replays.
+    Returns the phase's launches."""
+    phase_t0 = time.perf_counter()
+    demo, floor, method2, track16 = demo_scripts(root)
+    launches = _learning(demo, floor)
+    torch.cuda.empty_cache()
+
+    def add(counts):
+        for key, v in counts.items():
+            launches[key] = launches.get(key, 0) + v
+        torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.deterministic = True
+    # the feature loss's 32,768-point STFT overlaps 4 frames a sample: its
+    # backward's index_add_ races but for its deterministic kernel
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        n = M2_K * M2_GROUPS
+        system = method2.build(dev, n, 1)
+        batches = demo_batches(method2.SyntheticUnpairedDM(n, device=dev), n)
+        # the snapshot after one whole accumulation: the groups start at its offset 0, as in the demo's fit
+        got = _replay_checks(system, batches, "(c) Method 2, AudioFeatureLoss, accumulation 2", M2_K, M2_GROUPS,
+                             tag="[convergence]", trace=False, warm=method2.ACCUM, distinct_lrs=False,
+                             expect=(n, n // method2.ACCUM))
+        add(got["launches"])
+        del system, batches
+        system = track16.build(dev, S16_K, 1)
+        dm = track16.Synthetic16DM(S16_K, device=dev)
+        got = _replay_checks(system, demo_batches(dm, S16_K), "(d) 16 tracks (16, 12, 16, 10 real), the fx bus",
+                             S16_K, 1, tag="[convergence]", trace=False, distinct_lrs=False, expect=(S16_K, S16_K))
+        add(got["launches"])
+        del system, dm
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    line(f"[convergence] the phase: {time.perf_counter() - phase_t0:.1f} s; launches {launches}")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, k, **extra):
     """The kernel's entry of the JSON line, with the achieved TB/s of the
     bytes its function must move; the kernel launches and memsets a call,
@@ -3517,6 +3691,8 @@ def main() -> int:
         fused = phase_fused(root, tmp)
         torch.cuda.empty_cache()
         mesh = phase_mesh(root, tmp)
+        torch.cuda.empty_cache()
+        convergence = phase_convergence(root)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3536,18 +3712,19 @@ def main() -> int:
         requests, [param-est]'s remixes, [eval]'s requests, online
         iterations and exported requests, [tpu-recipe]'s steps and bf16
         request, [observe]'s profiled fit and ballistics steps, and
-        [fused]'s eager steps and graph replays, and [mesh]'s steps (the
-        single-process one and each rank's)."""
+        [fused]'s eager steps and graph replays, [mesh]'s steps (the
+        single-process one and each rank's), and [convergence]'s probes,
+        floors, fit, eager steps and replays."""
         total = (serving[key] + training[key] + cli[key] + feature.get(key, 0) + param_est.get(key, 0)
                  + evaluation.get(key, 0) + recipe.get(key, 0) + observe.get(key, 0) + fused.get(key, 0)
-                 + mesh.get(key, 0))
+                 + mesh.get(key, 0) + convergence.get(key, 0))
         return kernel_entry(name, source, replaces, total, stats[name],
                             launches_serving=serving[key], launches_training=training[key],
                             launches_cli=cli[key], launches_feature_loss=feature.get(key, 0),
                             launches_param_est=param_est.get(key, 0), launches_eval=evaluation.get(key, 0),
                             launches_tpu_recipe=recipe.get(key, 0), launches_observe=observe.get(key, 0),
-                            launches_fused=fused.get(key, 0), launches_mesh=mesh.get(key, 0), on_path=True,
-                            **extra)
+                            launches_fused=fused.get(key, 0), launches_mesh=mesh.get(key, 0),
+                            launches_convergence=convergence.get(key, 0), on_path=True, **extra)
 
     kernels = [
         entry("K1", "onepole_core", scan_cu, "diffmst_tpu/kernels/scan1p.py:111"),
@@ -3558,8 +3735,9 @@ def main() -> int:
         # the ballistics smoother's
         kernel_entry("onepole_core_per_sample", scan_cu,
                      "diffmst_tpu/kernels/scan1p.py:111 (per-sample alpha, onepole_scan_tv:160)",
-                     serving["K4"] + training["K4"] + mesh.get("K4", 0), stats["onepole_core_per_sample"],
-                     launches_mesh=mesh.get("K4", 0), on_path=False),
+                     serving["K4"] + training["K4"] + mesh.get("K4", 0) + convergence.get("K4", 0),
+                     stats["onepole_core_per_sample"], launches_mesh=mesh.get("K4", 0),
+                     launches_convergence=convergence.get("K4", 0), on_path=False),
         entry("K4-bwd", "onepole_core_backward_per_sample", scan_cu,
               "diffmst_tpu/kernels/scan1p.py:183 (onepole_scan_tv VJP, :176-187)"),
         entry("ballistics", "ballistics", ball_cu,

@@ -37,7 +37,7 @@ __all__ = [
 
 def _floor(x: torch.Tensor, value: float) -> torch.Tensor:
     """jnp.maximum(x, value): the gradient is halved where x == value."""
-    return torch.maximum(x, x.new_tensor(value))
+    return torch.maximum(x, x.new_full((), value))  # a fill on the device: no copy, as a CUDA graph needs
 
 
 def compute_rms(x: torch.Tensor, **kwargs) -> torch.Tensor:

@@ -6,6 +6,8 @@ versions). Tolerance: max-abs <= 1e-4 on the stems and the mix (BASELINE.md,
 "Numerical parity").
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,19 @@ def _inputs(seed, bs=2, n=3, t=16384):
 
 
 _JAX_MIX = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_scan_jitted():
+    """JAX's associative-scan smoother (the "auto" console's) jitted as a
+    whole for this module's references, as ``tests/test_torch_causal.py::
+    jax_scan_twins`` runs it: eagerly each of the scan's operations compiles
+    on its own (about 17 s of this module). The reference mix moves by
+    float32 rounding (1.4e-6 at a peak of 6.9)."""
+    jcomp = importlib.import_module("diffmst_tpu.ops.compressor")
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jcomp, "_smooth_scan", jax.jit(jcomp._smooth_scan))
+        yield
 
 
 def _jax_advanced(smoother):

@@ -28,6 +28,10 @@ fused``). The mesh
 of ``tests/_torch_mesh_ranks.py``, held against one process's step on the
 global batch (loss 1e-5, gradients 1e-3 of their norm, running statistics
 1e-4, cuDNN deterministic, TF32 off); fused steps over a gloo mesh raise.
+The convergence demos' fused recipes (``-k demo``): Method 2 with
+``AudioFeatureLoss`` and an accumulation of 2, and 16 tracks with padded
+slots and the fx bus, at toy width on their scripts' pools, replays
+against eager steps.
 """
 
 import pathlib
@@ -1220,3 +1224,91 @@ def test_mesh_fused_steps_on_gloo_raise(card):
     from diffmst_torch import parallel
 
     assert parallel.launch(_fused_on_gloo, 1, backend="gloo") == ["gloo"]
+
+
+def _demo_script(monkeypatch, name):
+    """``scripts/<name>_torch.py``, imported by name as the demo scripts
+    import each other, with the demos' model cut to toy width (embed 32, one
+    layer, Cnn14 width 4, hop 128, bf16 compute)."""
+    import importlib
+
+    monkeypatch.syspath_prepend(str(pathlib.Path(__file__).resolve().parents[1] / "scripts"))
+    demo = importlib.import_module("train_demo_torch")
+    monkeypatch.setattr(demo, "MODEL", dict(embed_dim=32, num_layers=1, nhead=4, hop_length=128, cnn_base_width=4,
+                                            compute_dtype="bfloat16"))
+    return importlib.import_module(f"{name}_torch")
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's and PyTorch's deterministic kernels (``index_add_``'s, which
+    the STFT's backward takes where more than two frames overlap a sample),
+    restored after; ops without a deterministic kernel warn."""
+    before = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.backends.cudnn.deterministic = before[0]
+    torch.use_deterministic_algorithms(before[1], warn_only=before[2])
+
+
+@pytest.mark.parametrize("name,datamodule,shape,k,groups,k2", [
+    ("train_demo_method2", "SyntheticUnpairedDM", (2, 2, 32768), 6, 2, (2, 2)),
+    ("train_demo_16track", "Synthetic16DM", (1, 16, 32768), 8, 1, (4, 2)),
+], ids=["method2", "16track"])
+def test_demo_replays_equal_eager_steps(card, deterministic, monkeypatch, name, datamodule, shape, k, groups, k2):
+    """The fused recipes of the convergence demos at a small depth: Method 2
+    with ``AudioFeatureLoss`` and an accumulation of 2 (two replays of 6),
+    and 16 tracks with padded slots and the fx bus (one replay of 8), each
+    over its script's pool from the snapshot after one whole accumulation:
+    the replays equal the eager steps within twice the spread of two eager
+    runs, or 1e-6 of each tensor's max-abs (deterministic kernels: the eager
+    runs are bitwise equal); the losses finite, the generator and counters
+    as eager's, and K2 and K2-bwd launched as many times a step as
+    eagerly."""
+    import itertools
+
+    from diffmst_torch.train.fused import FusedSteps
+    from diffmst_torch.train.trainer import _to_batch
+
+    mod = _demo_script(monkeypatch, name)
+    n = k * groups
+    system = mod.build(card, n, 1)
+    dm = getattr(mod, datamodule)(n, device=card, shape=shape)
+    batches = [_to_batch(raw, card) for raw in itertools.islice(dm.train_dataloader(), n)]
+    flags = system.effect_flags(0)
+    steps = FusedSteps(system, flags, k)
+    assert not steps.on_device
+    accumulate = system.config.accumulate_grad_batches
+    for b in batches[:accumulate]:
+        system.train_step(b, flags)  # the optimizer's state, the groups at the accumulation's offset 0
+    start = _clone(system.state_dict())
+    counters = lambda: (system.step, system.updates, system._mini_step)  # noqa: E731
+
+    def eager():
+        system.load_state_dict(start)
+        losses = [float(system.train_step(b, flags)["loss"]) for b in batches]
+        return losses, _clone(_flat_state(system)), system.generator.get_state(), counters()
+
+    runs = [eager(), eager()]
+    system.load_state_dict(start)
+    steps(batches[:k])  # the warm-up group, then the capture
+    assert steps.graph is not None
+    system.load_state_dict(start)
+    before = (comp_fused.compressor_fused_gain.launches, comp_fused.compressor_fused_backward.launches)
+    losses = [float(m["loss"]) for g in range(groups) for m in steps(batches[g * k:(g + 1) * k])]
+    torch.cuda.synchronize()
+    after = (comp_fused.compressor_fused_gain.launches, comp_fused.compressor_fused_backward.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (k2[0] * n, k2[1] * n)
+    (l0, s0, g0, c0), (l1, s1, _, c1) = runs
+    assert l0 == l1  # the deterministic kernels: two eager runs alike
+    assert np.isfinite(losses).all()
+    assert counters() == c0 == c1 == (accumulate + n, (accumulate + n) // accumulate, 0)
+    assert torch.equal(system.generator.get_state(), g0)
+    for got, a, b in zip(losses, l0, l1):
+        assert abs(got - a) <= max(2 * abs(a - b), 1e-6 * abs(a)), (got, a, b)
+    for got, a, b in zip(_flat_state(system), s0, s1):
+        spread = float((a.double() - b.double()).abs().max())
+        err = float((got.double() - a.double()).abs().max())
+        assert err <= max(2 * spread, 1e-6 * float(a.double().abs().max())), (err, spread)
